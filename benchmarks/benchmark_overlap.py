@@ -23,7 +23,9 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--every", type=int, default=1, help="dump cadence")
     p.add_argument("--file", default="overlap_bench.gsd")
-    p.add_argument("--pallas", action="store_true")
+    p.add_argument("--jnp", action="store_true",
+                   help="pin the jnp pair path (default: the auto policy, "
+                        "the Triton kernels on a GPU)")
     p.add_argument("--cpu", type=int, default=0, metavar="N")
     p.add_argument("--keep", action="store_true")
     args = p.parse_args(argv)
@@ -41,7 +43,7 @@ def main(argv=None):
     from tpgsd.sph import dam_break, make_step_fn
 
     db = dam_break(n_side=args.n_side)
-    use_pallas = args.pallas and jax.default_backend() == "tpu"
+    use_pallas = False if args.jnp else "auto"
     step = jax.jit(make_step_fn(db.grid, db.params, use_pallas=use_pallas))
     state, aux = step(db.state)  # compile
     jax.block_until_ready(state.x)
@@ -49,9 +51,11 @@ def main(argv=None):
     numpy.asarray(state.x)
 
     bytes_per_frame = db.n * (3 + 3 + 1 + 1) * 4
+    dev = jax.devices()[0]
     print(
-        "backend=%s particles=%d frame=%.2f MB dump every %d"
-        % (jax.default_backend(), db.n, bytes_per_frame / 1e6, args.every)
+        "device=%s %s x%d particles=%d frame=%.2f MB dump every %d"
+        % (dev.platform, dev.device_kind, len(jax.devices()), db.n,
+           bytes_per_frame / 1e6, args.every)
     )
 
     t0 = time.perf_counter()
@@ -90,4 +94,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from tpgsd.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     sys.exit(main())

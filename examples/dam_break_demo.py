@@ -41,8 +41,7 @@ def main(argv=None):
     p.add_argument("--decomp", choices=["slab", "2d", "3d"], default=None,
                    help="explicit domain decomposition over the device "
                         "mesh (shard_map + ppermute halos + migration): "
-                        "1-D slabs, (px,py) blocks, or (px,py,pz) blocks "
-                        "- the 1-D/2-D/3-D ICI torus mappings")
+                        "1-D slabs, (px,py) blocks, or (px,py,pz) blocks")
     p.add_argument("--vtu", action="store_true", help="convert to .vtu after")
     p.add_argument("--adaptive", action="store_true",
                    help="CFL-adaptive dt (Monaghan force/Courant "
@@ -63,13 +62,9 @@ def main(argv=None):
                    default="summation",
                    help="density formulation: continuity evolves rho as "
                         "carried state (one fused accel+drho sweep; "
-                        "composes with --spill and every --decomp)")
-    p.add_argument("--spill", action="store_true",
-                   help="two-tier spill cell layout (Pallas; main tier "
-                        "sized at 1.15x the densest initial cell)")
+                        "composes with every --decomp)")
     p.add_argument("--cpu", type=int, default=0, metavar="N",
-                   help="force N virtual CPU devices (env vars alone do "
-                        "not override accelerator plugins)")
+                   help="run on N virtual CPU devices")
     args = p.parse_args(argv)
 
     import jax
@@ -95,10 +90,7 @@ def main(argv=None):
     periodic = args.scenario == "taylor_green"
     n_fixed = 0
     if args.scenario == "dam_break":
-        db = dam_break(
-            n_side=args.n_side, capacity="auto",
-            capacity_headroom=1.15 if args.spill else 1.5,
-        )
+        db = dam_break(n_side=args.n_side, capacity="auto")
     elif args.scenario == "dam_break_2d":
         db = dam_break_2d(n_side=args.n_side, capacity="auto")
     elif args.scenario == "taylor_green":
@@ -106,11 +98,6 @@ def main(argv=None):
     else:
         db = hydrostatic_tank(n_side=args.n_side)
         n_fixed = db.n_fixed
-    if args.spill:
-        # tiny demo domains stretch cells (occupancy above the packed
-        # range); clamp the MAIN tier - the spill tier still holds 2K
-        cap = min(max(db.grid.capacity, 24), 64)
-        db = db._replace(grid=db.grid._replace(capacity=cap))
     if args.out is None:
         args.out = args.scenario + ".gsd"
     box3 = tuple(db.box) + (0.0,) * (3 - len(db.box))
@@ -119,13 +106,6 @@ def main(argv=None):
 
     if args.decomp and args.sharded:
         raise SystemExit("--decomp and --sharded are exclusive")
-    if args.sharded and args.spill:
-        raise SystemExit(
-            "--spill under GSPMD sharding is refused by XLA (Mosaic "
-            "kernels cannot be auto-partitioned); the spill champion "
-            "on a mesh is the explicitly-communicating path: "
-            "--decomp slab --spill"
-        )
     if args.sharded and args.scenario != "dam_break":
         # padding rows are parked in the 3-D box's far corner, which is
         # only safely out of interaction range for the 3-D dam break; a
@@ -184,9 +164,7 @@ def main(argv=None):
         kw = dict(n_fixed=n_fixed, periodic=periodic, xsph=args.xsph,
                   density_renorm=args.density_renorm,
                   surface_tension=args.surface_tension,
-                  spill=args.spill,
-                  density_mode=args.density_mode,
-                  use_pallas=True if args.spill else "auto")
+                  density_mode=args.density_mode)
         if args.adaptive:
             kw["cfl"] = args.cfl
         if decomp == "slab":
@@ -227,9 +205,9 @@ def main(argv=None):
         rho_sh = None if rho is None else sharding
         state_sh = SPHState(x=sharding, v=sharding, rho=rho_sh)
         aux_sh = (sharding, sharding, None)
-        # the sharding hint makes the "auto" policies GSPMD-aware: the
-        # jnp pair path is what XLA partitions (Mosaic kernels are a
-        # lowering-time error under GSPMD on >1 device)
+        # the sharding hint makes the "auto" policy GSPMD-aware: the
+        # jnp pair path is what XLA partitions (GSPMD does not partition
+        # a pallas_call)
         kw = dict(
             n_fixed=n_fixed, xsph=args.xsph,
             density_renorm=args.density_renorm,
@@ -268,8 +246,7 @@ def main(argv=None):
             n_fixed=n_fixed, periodic=periodic,
             xsph=args.xsph, density_renorm=args.density_renorm,
             surface_tension=args.surface_tension,
-            spill=args.spill, density_mode=args.density_mode,
-            use_pallas=True if args.spill else "auto",
+            density_mode=args.density_mode,
         )
         if args.adaptive:
             kw["cfl"] = args.cfl
@@ -372,4 +349,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from tpgsd.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

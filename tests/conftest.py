@@ -1,8 +1,11 @@
 """Pytest fixtures and configuration for the tpgsd test suite.
 
 JAX-based tests run on a virtual 8-device CPU mesh so multi-shard behavior
-is exercised without TPU hardware (the automated multi-shard coverage the
-reference never had; reference CI builds only: .github/workflows/ci.yml).
+is exercised without an accelerator (the automated multi-shard coverage
+the reference never had; reference CI builds only:
+.github/workflows/ci.yml).  Tests that need the compiled GPU kernels
+carry the ``gpu`` marker and skip here; ``chip_smoke.py`` runs the same
+checks on the card.
 """
 
 import collections
@@ -68,4 +71,8 @@ def skip_validate(request):
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "validate: Tests that perform long-running validations."
+    )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a GPU backend (compiled Triton kernels); skips elsewhere",
     )

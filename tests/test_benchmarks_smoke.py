@@ -98,13 +98,11 @@ def test_benchmark_scale_smoke(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("mode", ["summation", "continuity"])
-def test_benchmark_bigcycle_smoke(tmp_path, mode, monkeypatch, capsys):
+def test_benchmark_bigcycle_smoke(tmp_path, mode, capsys):
     """Full bigcycle harness at toy size: slab step + pipelined per-slab
-    dumps + resume + deep fsck.  TPGSD_IO_CALLBACK=1 skips the backend
-    probe (CPU delivers ordered io_callbacks)."""
+    dumps + resume + deep fsck."""
     import benchmark_bigcycle
 
-    monkeypatch.setenv("TPGSD_IO_CALLBACK", "1")
     assert (
         benchmark_bigcycle.main(
             ["--n-side", "9", "--slabs", "2", "--steps", "3",
@@ -125,7 +123,7 @@ def test_benchmark_bigcycle_whole_frame_smoke(tmp_path, capsys):
         benchmark_bigcycle.main(
             ["--n-side", "9", "--slabs", "2", "--steps", "3",
              "--dump-every", "2", "--resume-steps", "1",
-             "--whole-frame-dump", "--spill",
+             "--whole-frame-dump",
              "--file", str(tmp_path / "bw.gsd")]
         )
         == 0

@@ -171,34 +171,6 @@ def test_slab_init_density_matches_init_density():
     numpy.testing.assert_allclose(st_s.rho, st_g.rho, rtol=2e-5, atol=1e-2)
 
 
-def test_continuity_spill_slab_matches_single_tier():
-    """Continuity + two-tier spill per slab (interpret mode): parity
-    against the single-tier jnp slab step with capacity for the worst
-    cell."""
-    from tpgsd.sph import dam_break, init_density
-
-    db = dam_break(n_side=10, capacity="auto", capacity_headroom=1.15)
-    cap = min(max(db.grid.capacity, 24), 64)
-    db = db._replace(grid=db.grid._replace(capacity=cap))
-    grid_big = db.grid._replace(capacity=64)
-    st0 = init_density(db.state, grid_big, db.params)
-    step_ref = jax.jit(
-        make_slab_step_fn(grid_big, db.params, n_slabs=3,
-                          density_mode="continuity", use_pallas=False)
-    )
-    step_sp = jax.jit(
-        make_slab_step_fn(db.grid, db.params, n_slabs=3,
-                          density_mode="continuity", use_pallas=True,
-                          pallas_interpret=True, spill=True)
-    )
-    sa, sb = st0, st0
-    for _ in range(2):
-        sa, (ra, _pa, _oa, _wa) = step_ref(sa)
-        sb, (rb, _pb, _ob, _wb) = step_sp(sb)
-    numpy.testing.assert_allclose(sb.x, sa.x, rtol=1e-5, atol=1e-6)
-    numpy.testing.assert_allclose(rb, ra, rtol=5e-4)
-
-
 def test_continuity_slab_requires_rho():
     db = _scenario()
     step_s = jax.jit(

@@ -1,7 +1,7 @@
 """Distributed (slab + halo exchange) SPH vs the single-device step.
 
 Runs on the 8-device virtual CPU mesh; the same code paths drive real
-multi-chip meshes (ppermute over ICI).
+multi-device meshes (ppermute between devices).
 """
 
 import numpy
@@ -462,9 +462,9 @@ def test_y_decomposition_matches_x():
 
 
 def test_periodic_distributed_pallas_matches_jnp():
-    """Slab step with the Pallas kernels (interpret mode on the CPU
-    mesh) under a periodic box: y/z wrap reaches the kernels as ghost
-    halos, x through the ring - must match the jnp slab step."""
+    """Slab step with the Triton kernels (interpret mode on the CPU
+    mesh) under a periodic box: y/z wrap by the kernels' minimum image,
+    x through the ring - must match the jnp slab step."""
     from tpgsd.sph import taylor_green
 
     mesh = make_mesh()
@@ -484,7 +484,7 @@ def test_periodic_distributed_pallas_matches_jnp():
         return collect_state(dist, sc.n)
 
     x_j, v_j, _ = run()
-    x_p, v_p, _ = run(use_pallas=True)
+    x_p, v_p, _ = run(use_pallas=True, pallas_interpret=True)
     numpy.testing.assert_allclose(x_p, x_j, rtol=1e-5, atol=1e-6)
     numpy.testing.assert_allclose(v_p, v_j, rtol=5e-4, atol=5e-4)
 
@@ -817,14 +817,13 @@ def test_continuity_distributed_pallas_matches_jnp():
         return collect_state(dist, n)
 
     x_j, v_j, r_j = run()
-    x_p, v_p, r_p = run(use_pallas=True)
+    x_p, v_p, r_p = run(use_pallas=True, pallas_interpret=True)
     # x atol is wider than the summation-mode pallas tests': positions
     # integrate a density that itself integrates the noisier drho
     numpy.testing.assert_allclose(x_p, x_j, rtol=1e-5, atol=1e-5)
     numpy.testing.assert_allclose(v_p, v_j, rtol=5e-4, atol=5e-4)
-    # carried density integrates the drho column; the delta-SPH
-    # diffusion term's approximate reciprocals bound the gap (see
-    # test_pallas_ops.test_accel_drho_matches_jnp)
+    # carried density integrates the drho column; the kernel sums the
+    # 27 neighbour cells in another order than the jnp blocks
     numpy.testing.assert_allclose(r_p, r_j, rtol=5e-4)
 
 
@@ -955,8 +954,8 @@ def test_continuity_distributed_guards():
             grid, params, mesh, capacity=64, density_mode="continuity",
             density_renorm=True,
         )
-    # continuity + Pallas is supported (round 4): the builder constructs
-    # with the fused accel_drho kernel on the ext grid
+    # continuity + the Triton kernels: the builder constructs with the
+    # fused accel_drho kernel on the ext grid
     make_distributed_step_fn(
         grid, params, mesh, capacity=64, density_mode="continuity",
         use_pallas=True,

@@ -2,7 +2,7 @@
 slab steps.
 
 Runs on the 8-device virtual CPU mesh reshaped to (4, 2) / (2, 2) /
-(8, 1) grids; the same code paths drive real 2-D ICI toruses.
+(8, 1) grids; the same code paths drive a real 2-D device mesh.
 """
 
 import numpy
@@ -281,10 +281,10 @@ def test_2d_fixed_boundary_particles():
 
 
 def test_2d_pallas_matches_jnp():
-    """2-D block step with the Pallas kernels (interpret mode on the
+    """2-D block step with the Triton kernels (interpret mode on the
     CPU mesh): the extended-grid contract is the same one the 1-D slabs
-    feed, so the windowed-stencil kernels must reproduce the jnp block
-    step bit-for-bit modulo float reassociation."""
+    feed, so the kernels must reproduce the jnp block step modulo float
+    reassociation."""
     state, grid, params = _cloud_setup(seed=5)
     n = state.x.shape[0]
     mesh = make_mesh2d(shape=(2, 2))
@@ -300,15 +300,15 @@ def test_2d_pallas_matches_jnp():
         return collect_state(dist, n)
 
     x_j, v_j, _ = run()
-    x_p, v_p, _ = run(use_pallas=True)
+    x_p, v_p, _ = run(use_pallas=True, pallas_interpret=True)
     numpy.testing.assert_allclose(x_p, x_j, rtol=1e-5, atol=1e-6)
     numpy.testing.assert_allclose(v_p, v_j, rtol=5e-4, atol=5e-4)
 
 
 def test_2d_periodic_pallas_matches_jnp():
-    """Periodic 2-D block step with the Pallas kernels: x/y wraps ride
+    """Periodic 2-D block step with the Triton kernels: x/y wraps ride
     the ring halos (the kernels see pre-shifted true geometry), the z
-    wrap reaches the kernels as a ghost-cell halo via wrap_axes."""
+    wrap is the kernels' minimum image."""
     sc = taylor_green(n_side=21)
     mesh = make_mesh2d(shape=(4, 2))
 
@@ -325,7 +325,7 @@ def test_2d_periodic_pallas_matches_jnp():
         return collect_state(dist, sc.n)
 
     x_j, v_j, _ = run()
-    x_p, v_p, _ = run(use_pallas=True)
+    x_p, v_p, _ = run(use_pallas=True, pallas_interpret=True)
     numpy.testing.assert_allclose(x_p, x_j, rtol=1e-5, atol=1e-6)
     numpy.testing.assert_allclose(v_p, v_j, rtol=5e-4, atol=5e-4)
 
@@ -517,7 +517,7 @@ def test_2d_continuity_matches_single_device():
 
 
 def test_2d_continuity_pallas_matches_jnp():
-    """Continuity (4, 2) blocks on the fused accel+drho Pallas kernel
+    """Continuity (4, 2) blocks on the fused accel+drho Triton kernel
     (interpret mode) vs the decomposed jnp pair path."""
     from tpgsd.sph import init_density
 
@@ -538,7 +538,7 @@ def test_2d_continuity_pallas_matches_jnp():
         return collect_state(dist, n)
 
     x_j, v_j, r_j = run()
-    x_p, v_p, r_p = run(use_pallas=True)
+    x_p, v_p, r_p = run(use_pallas=True, pallas_interpret=True)
     # x atol is wider than the summation-mode pallas tests': positions
     # integrate a density that itself integrates the noisier drho
     numpy.testing.assert_allclose(x_p, x_j, rtol=1e-5, atol=1e-5)

@@ -2,8 +2,7 @@
 and 2-D block steps.
 
 Runs on the 8-device virtual CPU mesh reshaped to (2, 2, 2) / (4, 2, 1)
-/ (8, 1, 1) grids; the same code paths drive real 3-D ICI toruses
-(TPU v4/v5p).
+/ (8, 1, 1) grids; the same code paths drive a real device mesh.
 """
 
 import numpy
@@ -330,11 +329,10 @@ def test_3d_fixed_boundary_particles():
 
 
 def test_3d_pallas_matches_jnp():
-    """3-D block step with the Pallas kernels (interpret mode on the
+    """3-D block step with the Triton kernels (interpret mode on the
     CPU mesh): the extended-grid contract matches the 1-D/2-D one
-    (plain local cell table, wrap_axes=None), so the windowed-stencil
-    kernels must reproduce the jnp block step bit-for-bit modulo float
-    reassociation."""
+    (plain local cell table, no minimum image), so the kernels must
+    reproduce the jnp block step modulo float reassociation."""
     state, grid, params = _cloud_setup(seed=5)
     n = state.x.shape[0]
     mesh = make_mesh3d(shape=(2, 2, 2))
@@ -350,15 +348,15 @@ def test_3d_pallas_matches_jnp():
         return collect_state(dist, n)
 
     x_j, v_j, _ = run()
-    x_p, v_p, _ = run(use_pallas=True)
+    x_p, v_p, _ = run(use_pallas=True, pallas_interpret=True)
     numpy.testing.assert_allclose(x_p, x_j, rtol=1e-5, atol=1e-6)
     numpy.testing.assert_allclose(v_p, v_j, rtol=5e-4, atol=5e-4)
 
 
 def test_3d_periodic_pallas_matches_jnp():
-    """Periodic 3-D block step with the Pallas kernels: every wrap
+    """Periodic 3-D block step with the Triton kernels: every wrap
     rides the ring halos with pre-shifted seam ghosts, so the kernels
-    see true geometry and need no wrap_axes at all."""
+    see true geometry and need no minimum image at all."""
     state, grid, params = _cloud_setup(seed=6)
     n = state.x.shape[0]
     mesh = make_mesh3d(shape=(2, 2, 2))
@@ -373,7 +371,7 @@ def test_3d_periodic_pallas_matches_jnp():
         return collect_state(dist, n)
 
     x_j, v_j, _ = run()
-    x_p, v_p, _ = run(use_pallas=True)
+    x_p, v_p, _ = run(use_pallas=True, pallas_interpret=True)
     numpy.testing.assert_allclose(x_p, x_j, rtol=1e-5, atol=1e-6)
     numpy.testing.assert_allclose(v_p, v_j, rtol=5e-4, atol=5e-4)
 
@@ -592,7 +590,7 @@ def test_3d_continuity_matches_single_device():
 
 
 def test_3d_continuity_pallas_matches_jnp():
-    """Continuity (2, 2, 2) blocks on the fused accel+drho Pallas
+    """Continuity (2, 2, 2) blocks on the fused accel+drho Triton
     kernel (interpret mode) vs the decomposed jnp pair path."""
     from tpgsd.sph import init_density
 
@@ -613,7 +611,7 @@ def test_3d_continuity_pallas_matches_jnp():
         return collect_state(dist, n)
 
     x_j, v_j, r_j = run()
-    x_p, v_p, r_p = run(use_pallas=True)
+    x_p, v_p, r_p = run(use_pallas=True, pallas_interpret=True)
     # x atol is wider than the summation-mode pallas tests': positions
     # integrate a density that itself integrates the noisier drho
     numpy.testing.assert_allclose(x_p, x_j, rtol=1e-5, atol=1e-5)

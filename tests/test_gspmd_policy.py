@@ -1,18 +1,15 @@
-"""Sharding-aware resolution of the zero-knob champion defaults.
+"""Sharding-aware resolution of the pair-sweep policy.
 
-Mosaic (Pallas) kernels cannot be partitioned by GSPMD: on any
-multi-device mesh XLA refuses them at lowering time ("Mosaic kernels
-cannot be automatically partitioned. Please wrap the call in a
-shard_map").  ``make_step_fn(..., sharding=...)`` therefore pins the
-jnp pair path whenever the step will run under GSPMD-partitioned
-inputs - REGARDLESS of backend, so the configuration validated on the
-virtual CPU mesh here is the same one a real TPU pod resolves.  The
-Pallas champion on a mesh is the explicitly-communicating decomposed
-path (shard_map + ppermute halos, ``tests/test_distributed*.py``).
+A ``pallas_call`` is a custom call that GSPMD cannot partition, so
+``make_step_fn(..., sharding=...)`` pins the jnp pair path whenever the
+step will run under GSPMD-partitioned inputs - REGARDLESS of backend,
+so the configuration validated on the virtual CPU mesh here is the same
+one a multi-GPU mesh resolves.  The kernels on a mesh run inside
+``shard_map`` in the decomposed steps (``tests/test_distributed*.py``).
 
 The parallel path being first-class is the reference's whole point
 (reference: pgsd/pgsd/pgsd.c:1121-1152); these tests pin that tpgsd's
-flagship default is valid there, not just on one chip.
+default is valid there, not just on one device.
 """
 
 import jax
@@ -33,39 +30,35 @@ from tpgsd.sph import (
 
 
 @pytest.fixture
-def fake_tpu(monkeypatch):
-    """Pretend the backend is TPU so the auto policies face the real
-    decision (on the CPU test backend they resolve off trivially)."""
-    monkeypatch.setattr(step_mod.jax, "default_backend", lambda: "tpu")
+def fake_gpu(monkeypatch):
+    """Pretend the backend is a GPU so the auto policy faces the real
+    decision (on the CPU test backend it resolves off trivially)."""
+    monkeypatch.setattr(step_mod.jax, "default_backend", lambda: "gpu")
 
 
 def _db():
-    db = dam_break(n_side=6, capacity="auto", capacity_headroom=1.15)
-    cap = min(max(db.grid.capacity, 24), 64)
-    return db._replace(grid=db.grid._replace(capacity=cap))
+    return dam_break(n_side=6, capacity="auto")
 
 
-def test_auto_resolves_champion_on_single_tpu(fake_tpu):
-    """No sharding hint + TPU backend = the measured champion (packed
-    Pallas kernels + two-tier spill), in both density formulations."""
+def test_auto_resolves_champion_on_single_device(fake_gpu):
+    """No sharding hint + GPU backend = the Triton pair kernels, in both
+    density formulations."""
     db = _db()
     step = make_step_fn(db.grid, db.params)
     assert step.resolved == {
         "use_pallas": True,
-        "spill": True,
         "density_mode": "summation",
         "gspmd": False,
     }
     step_c = make_step_fn(db.grid, db.params, density_mode="continuity")
     assert step_c.resolved["use_pallas"] is True
-    assert step_c.resolved["spill"] is True
 
 
 @pytest.mark.parametrize("hint", ["mesh", "named_sharding", "int"])
-def test_auto_resolves_jnp_under_gspmd(fake_tpu, hint):
+def test_auto_resolves_jnp_under_gspmd(fake_gpu, hint):
     """A multi-device hint pins the GSPMD-partitionable jnp path even
-    on a TPU backend - the exact regime the flagship's north star runs
-    (a v5e pod), where Mosaic under GSPMD is a compile-time refusal."""
+    on a GPU backend, where a pallas_call under GSPMD cannot be
+    partitioned."""
     db = _db()
     mesh = make_mesh(n_devices=8)
     sharding = {
@@ -79,32 +72,28 @@ def test_auto_resolves_jnp_under_gspmd(fake_tpu, hint):
         )
         assert step.resolved == {
             "use_pallas": False,
-            "spill": False,
             "density_mode": mode,
             "gspmd": True,
         }
 
 
-def test_single_device_hint_keeps_champion(fake_tpu):
-    """A 1-device hint (or None) is not GSPMD - champion stays on."""
+def test_single_device_hint_keeps_champion(fake_gpu):
+    """A 1-device hint (or None) is not GSPMD - the kernels stay on."""
     db = _db()
     for sharding in (None, 1):
         step = make_step_fn(db.grid, db.params, sharding=sharding)
         assert step.resolved["use_pallas"] is True
-        assert step.resolved["spill"] is True
         assert step.resolved["gspmd"] is False
 
 
-def test_explicit_pallas_under_gspmd_raises(fake_tpu):
-    """Explicit use_pallas/spill=True + a multi-device hint must fail
-    at BUILD time with guidance, not at XLA lowering time."""
+def test_explicit_pallas_under_gspmd_raises(fake_gpu):
+    """Explicit use_pallas=True + a multi-device hint must fail at BUILD
+    time with guidance, not at XLA lowering time."""
     db = _db()
     with pytest.raises(ValueError, match="shard_map"):
         make_step_fn(db.grid, db.params, use_pallas=True, sharding=8)
     with pytest.raises(ValueError, match="make_distributed_step_fn"):
-        make_step_fn(
-            db.grid, db.params, use_pallas=True, spill=True, sharding=8
-        )
+        make_step_fn(db.grid, db.params, use_pallas=True, sharding=8)
 
 
 def test_bad_hint_type_raises():
@@ -113,7 +102,7 @@ def test_bad_hint_type_raises():
         make_step_fn(db.grid, db.params, sharding="8 devices")
 
 
-def test_adaptive_forwards_resolved(fake_tpu):
+def test_adaptive_forwards_resolved(fake_gpu):
     db = _db()
     step = make_adaptive_step_fn(db.grid, db.params, sharding=8)
     assert step.resolved["gspmd"] is True

@@ -6,7 +6,7 @@ striped offset protocol, controller-only buffered chunks, name/index
 replication for in-session reads, the compose-on-commit writer, and a
 kill-one-process-mid-frame recovery test proving the data-before-index
 promise under real process death.  This is the closest local stand-in
-for a multi-host TPU pod; the threading harness in test_multirank.py
+for a multi-host accelerator cluster; the threading harness in test_multirank.py
 covers the same protocol in-process.  (Reference never automated any
 multi-rank test — CHANGELOG.md:172-194 reports manual 1/2/4/8-rank
 benchmark runs; INSTALLING.rst:178-183 states the open-ranks
@@ -90,7 +90,7 @@ COMPOSED_WORKER = _PREAMBLE + textwrap.dedent(
     # Build a REAL cross-process sharded jax.Array (the pod pattern):
     # each process contributes its single CPU device's shard; the
     # global row indices come from the sharding, exactly as they would
-    # from per-host addressable shards on a TPU pod.
+    # from per-host addressable shards on a multi-host cluster.
     mesh = Mesh(numpy.array(jax.devices()), ("x",))
     sharding = NamedSharding(mesh, PartitionSpec("x"))
     rows = 4
@@ -143,7 +143,7 @@ KILL_WORKER = _PREAMBLE + textwrap.dedent(
 # Distributed SPH slab step across REAL OS processes: the mesh spans
 # one CPU device per process, so every ppermute halo/migration hop and
 # the distribute_state device_put cross a process boundary (Gloo) --
-# the local stand-in for a multi-host TPU pod running the stepper.
+# the local stand-in for a multi-host cluster running the stepper.
 # The in-process 8-device tests (test_distributed.py) prove the math;
 # this proves the cross-process plumbing end to end.
 SPH_WORKER = _PREAMBLE + textwrap.dedent(
@@ -277,7 +277,7 @@ SPH2D_WORKER = _PREAMBLE + textwrap.dedent(
 # ShardedFrameWriter streams them - each process pwrites only its
 # addressable shards at their sharding-derived offsets while the
 # controller commits the metadata.  This is the full simulate+dump
-# loop a multi-host TPU pod would run.
+# loop a multi-host cluster would run.
 SPH_DUMP_WORKER = _PREAMBLE + textwrap.dedent(
     """
     import jax.numpy as jnp
@@ -326,7 +326,7 @@ SPH_DUMP_WORKER = _PREAMBLE + textwrap.dedent(
 
 
 # 3-D block-decomposed SPH step across a (2, 2, 2) mesh of REAL OS
-# processes: ALL THREE torus axes span process boundaries, so every
+# processes: ALL THREE mesh axes span process boundaries, so every
 # hop of the z/y/x-ordered halo exchange and all three migration
 # phases ride Gloo.
 SPH3D_WORKER = _PREAMBLE + textwrap.dedent(
@@ -390,16 +390,14 @@ SPH3D_WORKER = _PREAMBLE + textwrap.dedent(
 )
 
 
-# The CHAMPION configuration (packed Pallas kernels + two-tier spill,
-# in both density formulations) across a REAL process boundary: the
-# slab mesh spans one CPU device per process, so the ext-grid halo and
-# the concatenated 2K-tier layout cross Gloo, with the kernels in
-# interpret mode (the CPU stand-in for the TPU Mosaic path).  The
-# in-process 8-device tests (test_spill.py) prove the math; this proves
-# the decomposed-spill halo/layout contract where jax.distributed
-# actually places process boundaries.  Density mode is derived from the
-# file name ("continuity" substring).
-CHAMPION_WORKER = _PREAMBLE + textwrap.dedent(
+# The Triton pair kernels (interpret mode, in both density
+# formulations) across a REAL process boundary: the slab mesh spans one
+# CPU device per process, so the ext-grid halo the kernels read crosses
+# Gloo.  The in-process 8-device tests prove the math; this proves the
+# kernel-in-shard_map contract where jax.distributed actually places
+# process boundaries.  Density mode is derived from the file name
+# ("continuity" substring).
+KERNEL_WORKER = _PREAMBLE + textwrap.dedent(
     """
     import numpy.testing
     import jax.numpy as jnp
@@ -417,9 +415,8 @@ CHAMPION_WORKER = _PREAMBLE + textwrap.dedent(
 
     mode = "continuity" if "continuity" in fname else "summation"
 
-    # the test_spill.py decomp cloud: a dense corner pushes >= 10 cells
-    # past the K=24 main tier (max < 2K = 48, so nothing overflows) and
-    # the (8, 4, 4) grid divides the 2-process slab mesh
+    # a cloud with a dense corner (max occupancy < 48, so nothing
+    # overflows); the (8, 4, 4) grid divides the 2-process slab mesh
     rng = numpy.random.default_rng(3)
     n = 2400
     x = rng.uniform(0.02, 0.98, (n, 3)).astype(numpy.float32)
@@ -429,26 +426,24 @@ CHAMPION_WORKER = _PREAMBLE + textwrap.dedent(
     x[:140, 2] = rng.uniform(0.02, 0.51, 140)
     v = (rng.normal(size=(n, 3)) * 0.05).astype(numpy.float32)
     grid = CellGrid(lo=(0.0, 0.0, 0.0), cell_size=0.25, dims=(8, 4, 4),
-                    capacity=24)
+                    capacity=48)
     params = SPHParams(mass=0.8, h=0.12, dt=1e-4, c0=20.0,
                        gravity=(0.0, 0.0, -9.81))
-    grid48 = grid._replace(capacity=48)
 
     occ = numpy.bincount(
-        numpy.asarray(build_cells(jnp.asarray(x), grid48).cid),
+        numpy.asarray(build_cells(jnp.asarray(x), grid).cid),
         minlength=grid.n_cells,
     )
-    assert (occ > 24).sum() >= 10 and occ.max() <= 44, occ.max()
+    assert occ.max() <= 44, occ.max()
 
     state = SPHState(x=jnp.asarray(x), v=jnp.asarray(v))
     kw = {}
     if mode == "continuity":
-        state = init_density(state, grid48, params)
+        state = init_density(state, grid, params)
         kw["density_mode"] = "continuity"
 
-    # serial jnp reference at capacity 48: a single tier holds the
-    # worst cell, replicated on every process's own device
-    step_ref = jax.jit(make_step_fn(grid48, params, **kw))
+    # serial jnp reference, replicated on every process's own device
+    step_ref = jax.jit(make_step_fn(grid, params, use_pallas=False, **kw))
     s_ref = state
     for _ in range(2):
         s_ref, aux_ref = step_ref(s_ref)
@@ -457,8 +452,8 @@ CHAMPION_WORKER = _PREAMBLE + textwrap.dedent(
     assert mesh.devices.size == nprocs
     dist, cap = distribute_state(state, grid, mesh)
     step_d = make_distributed_step_fn(
-        grid, params, mesh, capacity=cap, use_pallas=True, spill=True,
-        **kw)
+        grid, params, mesh, capacity=cap, use_pallas=True,
+        pallas_interpret=True, **kw)
     for _ in range(2):
         dist, aux = step_d(dist)
 
@@ -648,17 +643,15 @@ def test_sph_dump_cycle_multiprocess(tmp_path, nprocs):
 
 
 @pytest.mark.parametrize("mode", ["summation", "continuity"])
-def test_champion_spill_multiprocess(tmp_path, mode):
-    """The champion (packed Pallas + two-tier spill) across a REAL
-    process boundary, both density formulations.
+def test_kernel_slab_multiprocess(tmp_path, mode):
+    """The Triton pair kernels across a REAL process boundary, both
+    density formulations.
 
     The slab-decomposed step runs its kernels in interpret mode inside
-    shard_map over a 2-process mesh: the ext-grid halo and the
-    concatenated 2K-tier spill layout cross Gloo, and the collected
-    2-step trajectory must match the serial jnp step with a single
-    tier sized for the worst cell."""
-    fname = str(tmp_path / ("champion_%s.gsd" % mode))
-    procs, outputs = _launch(tmp_path, CHAMPION_WORKER, 2, fname)
+    shard_map over a 2-process mesh: the ext-grid halo crosses Gloo, and
+    the collected 2-step trajectory must match the serial jnp step."""
+    fname = str(tmp_path / ("kernel_%s.gsd" % mode))
+    procs, outputs = _launch(tmp_path, KERNEL_WORKER, 2, fname)
     for p, out in zip(procs, outputs):
         assert p.returncode == 0, out[-2000:]
         assert "OK" in out
@@ -667,7 +660,7 @@ def test_champion_spill_multiprocess(tmp_path, mode):
 @pytest.mark.parametrize("nprocs", [8])
 def test_distributed3d_sph_multiprocess(tmp_path, nprocs):
     """3-D block-decomposed SPH step over a (2, 2, 2) mesh of OS
-    processes - one device per process, so ALL THREE torus axes cross
+    processes - one device per process, so ALL THREE mesh axes cross
     process boundaries: every hop of the z/y/x-ordered halo exchange
     and all three migration phases ride the Gloo backend; the
     collected 3-step trajectory must match the serial single-device
@@ -680,7 +673,7 @@ def test_distributed3d_sph_multiprocess(tmp_path, nprocs):
 
 
 # Pod-shape preamble: each worker process models a HOST with FOUR local
-# devices (the real TPU-host shape), so the global mesh spans processes
+# devices (a multi-device host), so the global mesh spans processes
 # AND local devices at once - the regime where the addressable-shards
 # dedup, the JaxProcessComm offset protocol, and ShardedFrameWriter all
 # have to compose (the reference's open-ranks constraint governs
@@ -788,7 +781,7 @@ def test_pod_shape_write_read_sph(tmp_path, nprocs):
     their sharding-derived offsets while the controller commits the
     metadata; the sharded read-back reassembles the partitioning; and
     the slab SPH step + dump cycle runs over the same mesh - the full
-    multi-host TPU composition in one worker."""
+    multi-host composition in one worker."""
     n = 40 * nprocs
     fname = str(tmp_path / "pod.gsd")
     procs, outputs = _launch(tmp_path, POD_WORKER, nprocs, fname)

@@ -146,7 +146,7 @@ def test_hydrostatic_pressure_profile():
     # deficit-driven NEGATIVE surface pressures (measured: min p
     # -11.6 kPa -> 0.0) and the ringing failure mode they seeded
     # (round-1 ledger: re-ring to v_rms ~0.33 m/s).  Measured settled
-    # v_rms with the floor: 0.071 m/s (v5e, 1600 steps); bound with
+    # v_rms with the floor: about 0.07 m/s (1600 steps); bound with
     # margin for backend variation
     v_rms = float(numpy.sqrt((v[sc.n_fixed :] ** 2).sum(axis=1).mean()))
     assert v_rms < 0.12, "column still ringing: v_rms %.3f m/s" % v_rms

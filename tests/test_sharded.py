@@ -42,7 +42,7 @@ def test_array_shards_even(mesh):
 
 def test_array_shards_uneven(tmp_path, mesh):
     """Uneven row counts: pad+mask with the true count (the reference
-    instead spreads remainders over low ranks; on TPU padding is the
+    instead spreads remainders over low ranks; under XLA padding is the
     idiomatic equivalent)."""
     full = numpy.arange(61 * 2, dtype=numpy.float32).reshape(61, 2)
     x = shard_rows(jnp.asarray(full), mesh)  # pads to 64 rows

@@ -95,16 +95,17 @@ def test_slab_dump_with_fixed_boundary(tmp_path):
     _roundtrip(tmp_path, db, n_slabs=S, n_fixed=db.n_fixed)
 
 
-def test_slab_dump_spill_interpret(tmp_path):
-    """The emission composes with the two-tier spill slab (interpret
-    mode on CPU): windows gather from the concatenated-tier bundle."""
-    db = dam_break(n_side=10, capacity="auto", capacity_headroom=1.15)
-    cap = min(max(db.grid.capacity, 24), 64)
-    db = db._replace(grid=db.grid._replace(capacity=cap))
+def test_slab_dump_pallas_interpret(tmp_path):
+    """The emission composes with the Triton pair kernels (interpret
+    mode on CPU) in the continuity slab step."""
+    from tpgsd.sph import init_density
+
+    db = dam_break(n_side=10)
+    db = db._replace(state=init_density(db.state, db.grid, db.params))
     assert db.grid.dims[0] % 3 == 0, db.grid.dims
     _roundtrip(
         tmp_path, db, n_slabs=3, steps=2, dump_every=1,
-        use_pallas=True, pallas_interpret=True, spill=True,
+        density_mode="continuity", use_pallas=True, pallas_interpret=True,
     )
 
 
@@ -222,14 +223,3 @@ def test_slab_step_missing_dump_arg_raises():
     )
     with pytest.raises(TypeError, match="chan.dump"):
         step(db.state)
-
-
-def test_io_callback_env_override_case_insensitive(monkeypatch):
-    from tpgsd.io_runtime import io_callback_supported
-
-    for v in ("False", "NO", "off", "0"):
-        monkeypatch.setenv("TPGSD_IO_CALLBACK", v)
-        assert io_callback_supported() is False, v
-    for v in ("1", "True", "yes"):
-        monkeypatch.setenv("TPGSD_IO_CALLBACK", v)
-        assert io_callback_supported() is True, v

@@ -222,8 +222,8 @@ def test_density_renorm_fixes_surface_deficit():
 
 
 def test_density_renorm_in_step_paths():
-    """density_renorm threads identically through the jnp and Pallas
-    step paths."""
+    """density_renorm threads identically through the jnp and Triton
+    kernel step paths."""
     db = dam_break(n_side=6)
     s0 = db.state
     step_j = jax.jit(make_step_fn(db.grid, db.params, density_renorm=True))
@@ -295,33 +295,31 @@ def test_step_under_scan():
     assert bool(jnp.isfinite(rho_means).all())
 
 
-def test_use_pallas_auto_policy():
-    """"auto" resolves to pallas only on TPU with lane-aligned capacity."""
+def test_use_pallas_auto_policy(monkeypatch):
+    """"auto" resolves to the Triton kernels only on a GPU backend and
+    never under GSPMD; explicit True under GSPMD raises."""
     import jax
 
+    import tpgsd.sph.step as step_mod
     from tpgsd.sph import dam_break
-    from tpgsd.sph.step import make_step_fn
+    from tpgsd.sph.step import make_step_fn, resolve_use_pallas
 
     db = dam_break(n_side=4, capacity=32)
     # on the CPU test backend, auto must resolve to the jnp path and
     # the step must run
-    step = jax.jit(make_step_fn(db.grid, db.params, use_pallas="auto"))
-    state, aux = step(db.state)
+    step_fn = make_step_fn(db.grid, db.params, use_pallas="auto")
+    assert step_fn.resolved["use_pallas"] is False
+    state, aux = jax.jit(step_fn)(db.state)
     assert numpy.isfinite(numpy.asarray(state.x)).all()
 
-    # the measured policy itself: lane-native multiples of 128 and the
-    # ragged packings 24..64 win on TPU (MXU-factorized kernels);
-    # K=16 stalls the Mosaic compile and stays off
-    from tpgsd.sph import pallas_ops
-    from tpgsd.sph.cells import CellGrid
-
-    def sup(k):
-        return pallas_ops.supported(
-            CellGrid(lo=(0, 0, 0), cell_size=1.0, dims=(4, 4, 4), capacity=k)
-        )
-
-    assert all(sup(k) for k in (24, 32, 40, 48, 56, 64, 128, 256))
-    assert not any(sup(k) for k in (8, 16, 72, 96))
+    assert resolve_use_pallas(False) is False
+    assert resolve_use_pallas(True) is True
+    monkeypatch.setattr(step_mod.jax, "default_backend", lambda: "gpu")
+    assert resolve_use_pallas("auto") is True
+    assert resolve_use_pallas("auto", gspmd=True) is False
+    assert resolve_use_pallas(False, gspmd=True) is False
+    with pytest.raises(ValueError, match="shard_map"):
+        resolve_use_pallas(True, gspmd=True)
 
 
 def test_xsph_conserves_momentum():
@@ -386,44 +384,6 @@ def test_xsph_step_stable_and_momentum_neutral():
     numpy.testing.assert_array_equal(
         numpy.asarray(s_0.x), numpy.asarray(s_p.x)
     )
-
-
-def test_scatter_soa_matches_aos_on_live_slots():
-    """The 16-particle row-gather SoA layout must agree with the AoS
-    gidx gather EXACTLY on live slots, across ragged particle counts
-    (row-view slack, parity rotation) and capacities."""
-    import numpy
-
-    from tpgsd.sph import dam_break
-    from tpgsd.sph.cells import (
-        build_cells,
-        scatter_to_cells,
-        scatter_to_cells_soa,
-    )
-
-    for ns, cap in ((7, 24), (9, 48), (11, 8)):
-        db = dam_break(n_side=ns, capacity=cap)
-        cells = build_cells(db.state.x, db.grid)
-        vals = jnp.concatenate([db.state.x, db.state.v + 1.5], axis=-1)
-        aos = numpy.asarray(scatter_to_cells(vals, cells, db.grid))
-        soa = numpy.asarray(scatter_to_cells_soa(vals, cells, db.grid))
-        mask = numpy.asarray(cells.mask)[: db.grid.n_cells]
-        for p in range(6):
-            a = aos[: db.grid.n_cells, :, p]
-            b = soa[p]
-            numpy.testing.assert_array_equal(a[mask], b[mask])
-
-
-def test_scatter_soa_rejects_unsupported_shapes():
-    import pytest as _pytest
-
-    from tpgsd.sph import dam_break
-    from tpgsd.sph.cells import build_cells, scatter_to_cells_soa
-
-    db = dam_break(n_side=6, capacity=8)
-    cells = build_cells(db.state.x, db.grid)
-    with _pytest.raises(ValueError):
-        scatter_to_cells_soa(jnp.zeros((db.n, 9)), cells, db.grid)
 
 
 def test_adaptive_step_matches_fixed_at_same_dt():
@@ -665,13 +625,8 @@ def test_continuity_step_requires_seed_and_rejects_bad_compositions():
             db.grid, db.params, density_mode="continuity",
             density_renorm=True,
         )
-    # continuity + Pallas (and continuity + spill) are supported
-    # (round 4): the builders construct with the fused accel_drho
-    # kernels at packed/lane-native capacities
-    make_step_fn(
-        db.grid, db.params, density_mode="continuity", spill=True,
-        use_pallas=True,
-    )
+    # continuity + the Triton kernels: the builder constructs with the
+    # fused accel_drho kernel at any capacity
     make_step_fn(
         db.grid, db.params, density_mode="continuity", use_pallas=True
     )

@@ -1,8 +1,8 @@
-"""tpgsd - TPU-native parallel GSD trajectory I/O.
+"""tpgsd - parallel GSD trajectory I/O for JAX device arrays.
 
 A ground-up rebuild of the capabilities of PGSD (an MPI-parallel fork of the
-Glotzer Group's GSD library for SPH trajectory output) designed for TPU
-systems:
+Glotzer Group's GSD library for SPH trajectory output) designed for
+single-controller JAX accelerator systems:
 
 * ``tpgsd.format``  - bit-exact GSD v1/v2 on-disk codec (numpy structured
   dtypes; no JAX dependency).
@@ -14,8 +14,8 @@ systems:
   *working* parallel ``append()``.
 * ``tpgsd.parallel`` - sharded writer/reader: per-device particle partitions
   of ``jax.Array`` objects stream to precomputed file offsets; offsets derive
-  from an all-gather of per-shard sizes over ICI (the TPU-native equivalent
-  of the reference's ``MPI_Allgather`` offset protocol,
+  from an all-gather of per-shard sizes over the device interconnect (the
+  equivalent of the reference's ``MPI_Allgather`` offset protocol,
   reference: pgsd/pgsd/pgsd.c:1108-1201).
 * ``tpgsd.sph``     - JAX/Pallas SPH stepper (cell-list neighbor search,
   kernel-weighted density, Tait EOS, symplectic integrator) as the live

@@ -164,7 +164,7 @@ def main():
     (reference: pgsd/pgsd/__main__.py:88-171)."""
     parser = argparse.ArgumentParser(
         prog="tpgsd",
-        description="TPU-native readers and writers for the GSD/PGSD "
+        description="Readers and writers for the GSD/PGSD "
         "trajectory file format.",
     )
     parser.add_argument(

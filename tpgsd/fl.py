@@ -2,7 +2,7 @@
 
 This is the tpgsd equivalent of the reference's C core + Cython wrapper
 (reference: pgsd/pgsd/pgsd.c, pgsd/pgsd/fl.pyx), redesigned for a
-single-controller TPU system:
+single-controller accelerator system:
 
 * The on-disk result is bit-compatible GSD v2 (reads v1/v2 and legacy 0.3).
 * All data I/O is positioned (pread/pwrite at explicit offsets), so shard
@@ -661,7 +661,7 @@ class PGSDFile:
         """Cross-process invariant check: every participant must agree on
         the frame counter and the derived file size.
 
-        The TPU-side equivalent of the reference's Allreduce-MIN
+        The single-controller equivalent of the reference's Allreduce-MIN
         same-value checks (reference: pgsd/pgsd/pgsd.c:174-202, invoked
         at pgsd.c:1938, 2219, 2272).  Divergence indicates a process
         wrote a different chunk set; by default it is reported on stderr
@@ -1152,8 +1152,7 @@ class PGSDFile:
         # pread and hand out zero-copy views.  One sequential read is
         # what a cold spinning/virtual device wants (no per-chunk
         # seeks), and one block allocation sidesteps glibc's
-        # mmap-threshold churn (17 fresh 8 MB buffers per call measured
-        # 0.4 GB/s where one 143 MB buffer runs at copy speed).
+        # mmap-threshold churn of many fresh per-chunk buffers.
         segs = []
         for entry in entries:
             dtype = TYPE_TO_DTYPE[int(entry["type"])]

@@ -121,14 +121,11 @@ class NativeFileHandle(PosixFileHandle):
     )
     #: threads for batched BUFFERED reads: capped at the CORE count.
     #: Buffered reads often serve from the page cache, where the work is
-    #: pure memcpy - on a 1-vCPU host, 4 threads thrashing one core
-    #: measured 349 MB/s where a single thread does 4.4 GB/s.  O_DIRECT
-    #: reads are the opposite regime - pure I/O, no memcpy contention -
-    #: and take the write-style ``threads`` floor of 4 instead (queue
-    #: depth on the device: measured 145 MB/s buffered 1-thread vs
-    #: 1969 MB/s direct 1-thread vs 4787 MB/s direct 4-thread on the
-    #: same 1-vCPU host, 3 GB cold file).  An explicit TPGSD_IO_THREADS
-    #: wins for both directions.
+    #: pure memcpy - more threads than cores thrash.  O_DIRECT reads are
+    #: the opposite regime - pure I/O, no memcpy contention - and take
+    #: the write-style ``threads`` floor of 4 instead (queue depth on
+    #: the device).  An explicit TPGSD_IO_THREADS wins for both
+    #: directions.
     read_threads = int(os.environ.get("TPGSD_IO_THREADS", "0")) or max(
         1, min(8, (os.cpu_count() or 1))
     )

@@ -2,7 +2,7 @@
 
 The reference has no equivalent - its host simulation blocks in
 ``MPI_File_write_at`` every chunk (reference: pgsd/pgsd/pgsd.c:2225-2237).
-On TPU the step dispatch is asynchronous, so the dump pipeline is:
+On an accelerator the step dispatch is asynchronous, so the dump pipeline is:
 
     device:   step N          | step N+1            | ...
     host:     D2H frame N-1   | D2H frame N         | ...
@@ -15,14 +15,13 @@ hazard, no explicit double buffer.
 
 from .dump import AsyncDumpRunner, DumpStats, run_dump_loop
 from .jit_dump import JitDumpChannel, scan_simulate, scan_simulate_adaptive
-from .slab_dump import SlabDumpChannel, io_callback_supported
+from .slab_dump import SlabDumpChannel
 
 __all__ = [
     "AsyncDumpRunner",
     "DumpStats",
     "JitDumpChannel",
     "SlabDumpChannel",
-    "io_callback_supported",
     "run_dump_loop",
     "scan_simulate",
     "scan_simulate_adaptive",

@@ -1,7 +1,7 @@
 """Frame dumps from INSIDE jitted code: ``jax.experimental.io_callback``.
 
 The plain dump loop leaves jit every step (Python drives the loop and
-submits frames).  For long rollouts the TPU-native shape is one
+submits frames).  For long rollouts the jit-native shape is one
 ``lax.scan`` over the whole simulation - a single compiled program -
 with the dump embedded as an ordered host callback: the device pushes
 each selected frame's arrays to the host, where the async runner queues

@@ -1,12 +1,12 @@
 """Sharded trajectory I/O for JAX arrays over device meshes.
 
-The TPU-native replacement for the reference's MPI-rank parallelism
+The JAX replacement for the reference's MPI-rank parallelism
 (reference: pgsd/pgsd/pgsd.c MPI_File_* + MPI_Allgather offset protocol):
 
 * devices replace ranks: a ``jax.Array`` sharded over axis 0 carries its
   own partition map; per-shard file offsets come from the sharding, so the
   ``MPI_Allgather`` of sizes (reference: pgsd/pgsd/pgsd.c:1121-1152) becomes
-  a lookup - and for dynamic sizes, ``jax.lax.all_gather`` over ICI.
+  a lookup - and for dynamic sizes, ``jax.lax.all_gather``.
 * one controller process commits metadata (index/namelist/header),
   replacing rank-0 logic (reference: pgsd/pgsd/pgsd.c:1531-1607).
 * every host pwrites only its addressable shards at disjoint offsets into

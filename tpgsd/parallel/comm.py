@@ -33,7 +33,7 @@ class SingleComm:
 
 
 class JaxProcessComm:
-    """Multi-host communicator over JAX collectives (DCN/ICI).
+    """Multi-host communicator over JAX collectives.
 
     Uses ``jax.experimental.multihost_utils``; requires
     ``jax.distributed.initialize()`` to have been called.  Values must be

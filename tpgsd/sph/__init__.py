@@ -6,15 +6,15 @@ Tait equation of state, artificial viscosity, and a symplectic integrator
 (the SPH formulation the reference's schema fields serve:
 pgsd/doc/pgsd.tex:525-565 - slength/density/pressure/energy chunks).
 
-TPU-first design:
+Design:
 
 * fixed-capacity dense cell layout ``[n_cells+1, capacity]`` - static
   shapes, masked slots, sentinel row for out-of-range neighbors; built
   with one XLA sort per step.
-* pairwise distances inside a cell neighborhood via ``|x|^2 + |y|^2 -
-  2 x.y^T`` so the inner product rides the MXU (see
-  ``tpgsd.sph.pallas_ops``).
-* multi-chip scaling by sharding the cell axis into spatial slabs
+* the density, accel and fused accel+drho neighbour sweeps run as
+  Triton Pallas kernels on a GPU (``tpgsd.sph.pair_kernel``) and as
+  blocked jnp elsewhere (``tpgsd.sph.step``).
+* multi-device scaling by sharding the cell axis into spatial slabs
   (x-major linear cell index) - XLA inserts the halo collectives; the
   SPH analogue of context parallelism.
 """
@@ -22,9 +22,7 @@ TPU-first design:
 from .kernels import CubicSpline, WendlandC2  # noqa: F401
 from .cells import (  # noqa: F401
     CellGrid,
-    SpillCells,
     build_cells,
-    build_cells_spill,
 )
 from .step import (  # noqa: F401
     SPHParams,

@@ -1,23 +1,20 @@
 """Slab-sequential SPH step for particle counts whose dense cell layout
-exceeds single-chip HBM.
+exceeds one device's memory.
 
 The standard step (``tpgsd.sph.step.make_step_fn``) materializes the
 whole domain's dense cell layout at once: ~6.6 slots/particle across up
-to 9 field planes, ~300-450 bytes/particle of peak HBM - a 1e8-particle
-domain needs ~40 GB, far over one v5e's 16 GB even though the state
-itself (x, v = 24 B/particle) fits easily.
+to 9 field planes, a few hundred bytes/particle of peak device memory,
+while the state itself (x, v = 24 B/particle) is far smaller.
 
-This module trades wall time for memory the TPU-native way: the x-major
-cell order makes every x-slab a CONTIGUOUS cell range AND (after the
-global cell sort) a contiguous range of sorted particles, so a
-``lax.scan`` over slabs can
+This module trades wall time for memory: the x-major cell order makes
+every x-slab a CONTIGUOUS cell range AND (after the global cell sort) a
+contiguous range of sorted particles, so a ``lax.scan`` over slabs can
 
 1. build only ONE slab's dense layout (+2 halo cell-planes each side)
-   per iteration via the same row gathers as
-   :func:`tpgsd.sph.cells.scatter_to_cells_soa`,
-2. run the unmodified Pallas (or jnp) density/accel kernels on the
-   slab's extended grid - positions shifted into the slab frame so the
-   kernels' block-local coordinates stay small,
+   per iteration with one gather from the sorted features,
+2. run the same pair sweeps as the global step (Triton kernels or jnp
+   blocks, :func:`tpgsd.sph.step.pair_sweeps`) on the slab's extended
+   grid - positions shifted into the slab frame,
 3. compact the core cells' results through a fixed-size window row
    gather and ``dynamic_update_slice`` them into a full-length
    sorted-order output.  Ascending slab order makes each region's last
@@ -27,14 +24,16 @@ global cell sort) a contiguous range of sorted particles, so a
    (``aux[3]``, slab window overflow), never silent - re-slab with a
    wider window (the default is ``3 n / n_slabs``).
 
-Peak memory ~130 B/particle + one slab's dense planes: 1e8 particles
-in ~14 GB with 16+ slabs.  There is no inter-slab communication at all
-- halos are rebuilt from the global sorted array each step, which costs
-~4/nxl extra planes of pair math instead of a ppermute; the multi-chip
-version of the same decomposition (with real ppermute halos and
-migration instead of a global sort) is ``tpgsd.sph.distributed``.
+Peak memory is the sorted state plus one slab's dense planes.  There is
+no inter-slab communication at all - halos are rebuilt from the global
+sorted array each step, which costs ~4/nxl extra planes of pair math;
+the multi-device version of the same decomposition (with real ppermute
+halos and migration instead of a global sort) is
+``tpgsd.sph.distributed``.  Where one device holds the global step's
+layout, that step is the simpler choice; where the crossover lies on a
+given card is not yet measured.
 
-Matches ``make_step_fn`` semantics: same kernels, same wall/gravity/
+Matches ``make_step_fn`` semantics: same sweeps, same wall/gravity/
 n_fixed treatment, same counted cell overflow; ``periodic`` and
 ``xsph`` are not supported here (use the distributed step for periodic
 scale-out).  Parity with the global step is exact up to float
@@ -46,13 +45,26 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from .cells import CellGrid, _expand_rows, _row_view, cell_id
+from .cells import CellGrid, cell_id, neighbor_table
 from .kernels import WendlandC2
-from .step import SPHState, _renormalize_density, tait_pressure
+from .step import (
+    SPHState,
+    _renormalize_density,
+    pair_sweeps,
+    resolve_use_pallas,
+    tait_pressure,
+)
 
 #: halo planes on each side of a slab (2: one so density is valid one
 #: plane into the halo, one more so those densities see their neighbors)
 _PAD = 2
+
+
+def _with_sentinel(a, fill):
+    """Append the all-``fill`` sentinel row the neighbour table points
+    out-of-range cells at."""
+    row = jnp.full((1,) + a.shape[1:], fill, a.dtype)
+    return jnp.concatenate([a, row])
 
 
 def make_slab_step_fn(
@@ -63,11 +75,9 @@ def make_slab_step_fn(
     kernel=WendlandC2,
     block=32,
     use_pallas="auto",
-    pallas_block=None,
-    pallas_interpret=None,
+    pallas_interpret=False,
     n_fixed=0,
     density_renorm=False,
-    spill="auto",
     slab_emit=None,
     density_mode="summation",
     delta_sph=0.1,
@@ -84,15 +94,8 @@ def make_slab_step_fn(
             ``ceil(3 n / n_slabs)`` at trace time).  Must be >= the
             largest per-slab particle population; shortfalls are
             counted in ``aux[3]``.
-        use_pallas / block / pallas_block / kernel / n_fixed /
+        use_pallas / pallas_interpret / block / kernel / n_fixed /
             density_renorm: as in :func:`tpgsd.sph.step.make_step_fn`.
-        spill: two-tier slot layout per slab (Pallas only; see
-            :func:`tpgsd.sph.step.make_step_fn`): ``grid.capacity``
-            sizes the main tier near the typical occupancy and dense
-            cells overflow into an equal flag-skipped spill tier - the
-            same ~1.5x pair-math win as the global step, at the
-            north-star >HBM scales this step exists for.  Per-slab
-            peak memory grows by one tier's dense planes.
         slab_emit: optional host callback
             ``(step, slab, p0, rows, pids, payload) -> None`` wired
             through an ordered ``jax.experimental.io_callback`` INSIDE
@@ -125,8 +128,7 @@ def make_slab_step_fn(
             carries ``state.rho`` (seed with
             :func:`slab_init_density`), rides it through the sorted
             features (7 columns), and runs the fused accel+drho sweep
-            per slab - ONE neighbor pass per step instead of two, the
-            measured champion formulation at >HBM scale too.
+            per slab - ONE neighbor pass per step instead of two.
         delta_sph: Molteni-Colagrossi diffusion strength (continuity
             mode only).
 
@@ -134,9 +136,6 @@ def make_slab_step_fn(
         ``step(state) -> (state, (rho, p, cell_overflow, window_overflow))``
         (with ``slab_emit``: ``step(state, dump)``, same outputs).
     """
-    from . import pallas_ops as _po
-    from .step import _accel_blocks, _accel_drho_blocks, _density_blocks
-
     if density_mode not in ("summation", "continuity"):
         raise ValueError("density_mode must be summation or continuity")
     continuity = density_mode == "continuity"
@@ -164,37 +163,10 @@ def make_slab_step_fn(
         dims=(nxl + 2 * _PAD, ny, nz),
         capacity=k,
     )
-    if use_pallas == "auto":
-        use_pallas = jax.default_backend() == "tpu" and (
-            _po.accel_drho_supported(ext_grid)
-            if continuity
-            else _po.supported(ext_grid)
-        )
-    if pallas_block is None:
-        pallas_block = _po.default_block(ext_grid)
-    if spill == "auto":
-        spill = (
-            jax.default_backend() == "tpu"
-            and bool(use_pallas)
-            and _po.spill_supported(ext_grid)
-        )
-    if spill:
-        if not use_pallas:
-            raise ValueError(
-                "spill=True requires use_pallas - the two-tier layout "
-                "exists for the packed Pallas kernels"
-            )
-        if not _po.spill_supported(ext_grid):
-            raise ValueError(
-                "spill needs a packed capacity (24 <= K <= 64, multiple "
-                "of 8); got %d" % k
-            )
-    if use_pallas:
-        from . import pallas_ops
-    else:
-        from .cells import neighbor_table
-
-        nbr_ext = neighbor_table(ext_grid)
+    sweeps = pair_sweeps(
+        resolve_use_pallas(use_pallas), block, interpret=pallas_interpret
+    )
+    nbr_ext = neighbor_table(ext_grid)
 
     lo_g = np.asarray(grid.lo, np.float32)
     hi_g = lo_g + cell * np.asarray(grid.dims, np.float32)
@@ -241,16 +213,15 @@ def make_slab_step_fn(
         )
         run_start = jax.lax.cummax(jnp.where(boundary, iota, 0))
         slot = iota - run_start
-        kt = 2 * k if spill else k  # total retained slots per cell
-        dropped = slot >= kt
+        dropped = slot >= k
         cell_ovf = dropped.sum().astype(jnp.int32)
 
-        # sorted features, octet view (see scatter_to_cells_soa);
-        # continuity rides the carried density as a 7th column
+        # sorted features (continuity rides the carried density as a
+        # 7th column); rows past n are zeros - the empty-slot source of
+        # the per-slab layout gather and the window slices
         feats = [x, v] + ([state.rho[:, None]] if continuity else [])
         vs = jnp.concatenate(feats, axis=-1)[order]
-        # 16-particle 128-lane rows (sized for spill's +K slot window)
-        ov = _row_view(vs, n, k, nf, slot_base=k if spill else 0)
+        vs_pad = jnp.concatenate([vs, jnp.zeros((w_rows, nf), vs.dtype)])
 
         # ext-range helpers padded with _PAD virtual planes each side
         starts_ext = jnp.concatenate(
@@ -271,9 +242,8 @@ def make_slab_step_fn(
         cid_pad = jnp.concatenate([cid_s, jnp.full(w_rows, c, jnp.int32)])
         slot_pad = jnp.concatenate([slot, jnp.zeros(w_rows, jnp.int32)])
         if slab_emit is not None:
-            # per-slab emission needs the sorted features and global
-            # pids window-sliceable; pid -1 marks rows past n
-            vs_pad = jnp.concatenate([vs, jnp.zeros((w_rows, nf), vs.dtype)])
+            # per-slab emission needs the global pids window-sliceable;
+            # pid -1 marks rows past n
             pid_pad = jnp.concatenate(
                 [order.astype(jnp.int32), jnp.full(w_rows, -1, jnp.int32)]
             )
@@ -322,9 +292,8 @@ def make_slab_step_fn(
             ct = jax.lax.dynamic_slice(counts_ext, (c0e,), (c_ext,))
             mask = kslots[None, :] < jnp.minimum(ct, k)[:, None]
 
-            soa = _expand_rows(ov, st, c_ext, k, nf)  # [nf, c_ext, k]
-            # shift positions into the slab frame (block-local kernel
-            # coordinates must stay ~cell-sized, not domain-sized)
+            dense = vs_pad[jnp.where(mask, st[:, None] + kslots, n)]
+            # shift positions into the slab frame
             origin = jnp.stack(
                 [
                     lo_g[0] + (s * nxl - _PAD) * cell,
@@ -332,183 +301,45 @@ def make_slab_step_fn(
                     jnp.float32(lo_g[2]),
                 ]
             )
-            x_soa = soa[:3] - origin[:, None, None]
-            v_soa = soa[3:6]
+            dense_x = _with_sentinel(dense[..., :3] - origin, 0.0)
+            dense_v = _with_sentinel(dense[..., 3:6], 0.0)
+            mask_s = _with_sentinel(mask, False)
+            live = mask.astype(jnp.float32)[..., None]
 
             if continuity:
                 # carried density rides column 6; ONE fused accel+drho
                 # sweep per slab replaces the density+accel pair
-                def _tier_rho_p(soa_t, m):
-                    rho_t = jnp.where(
-                        m, jnp.maximum(soa_t[6], 0.1 * params.rho0),
-                        params.rho0,
-                    )
-                    return rho_t, jnp.where(
-                        m, tait_pressure(rho_t, params), 0.0
-                    )
-
-                def _tier4(out4, m):
-                    # bundle columns [acc3 | drho | - | live]
-                    return jnp.concatenate(
-                        [
-                            out4,
-                            jnp.zeros_like(out4[..., :1]),
-                            m.astype(jnp.float32)[..., None],
-                        ],
-                        axis=-1,
-                    )
-
-                rho_a, p_a = _tier_rho_p(soa, mask)
-                if spill:
-                    mask_b = (k + kslots[None, :]) < jnp.minimum(
-                        ct, 2 * k
-                    )[:, None]
-                    soa_b = _expand_rows(ov, st + k, c_ext, k, nf)
-                    xb_soa = soa_b[:3] - origin[:, None, None]
-                    vb_soa = soa_b[3:6]
-                    rho_b, p_b = _tier_rho_p(soa_b, mask_b)
-                    out4_a, out4_b = pallas_ops.accel_drho_spill(
-                        x_soa, v_soa, rho_a, p_a, mask,
-                        xb_soa, vb_soa, rho_b, p_b, mask_b,
-                        ext_grid, params, kernel=kernel,
-                        delta_sph=delta_sph, block=pallas_block,
-                        interpret=pallas_interpret, soa=True,
-                    )
-                    bundle = jnp.concatenate(
-                        [_tier4(out4_a, mask), _tier4(out4_b, mask_b)],
-                        axis=1,
-                    )  # [c_ext, 2K, 6]
-                elif use_pallas:
-                    out4 = pallas_ops.accel_drho(
-                        x_soa, v_soa, rho_a, p_a, mask, ext_grid, params,
-                        kernel=kernel, delta_sph=delta_sph,
-                        block=pallas_block, interpret=pallas_interpret,
-                        soa=True,
-                    )
-                    bundle = _tier4(out4, mask)
-                else:
-                    dense_x = jnp.concatenate(
-                        [
-                            jnp.moveaxis(x_soa, 0, -1),
-                            jnp.zeros((1, k, 3), jnp.float32),
-                        ]
-                    )
-                    dense_v = jnp.concatenate(
-                        [
-                            jnp.moveaxis(v_soa, 0, -1),
-                            jnp.zeros((1, k, 3), jnp.float32),
-                        ]
-                    )
-                    mask_s = jnp.concatenate([mask, jnp.zeros((1, k), bool)])
-                    rho_sd = jnp.concatenate(
-                        [rho_a, jnp.full((1, k), params.rho0, rho_a.dtype)]
-                    )
-                    p_sd = jnp.concatenate([p_a, jnp.zeros((1, k), p_a.dtype)])
-                    out4 = _accel_drho_blocks(
-                        dense_x, dense_v, rho_sd, p_sd, mask_s, nbr_ext,
-                        params, kernel, block, delta_sph,
-                    )
-                    bundle = _tier4(out4, mask)
-            elif spill:
-                # two-tier slab: tier B holds slots [K, 2K) via the same
-                # row-gather expansion at a +K slot offset
-                mask_b = (k + kslots[None, :]) < jnp.minimum(ct, 2 * k)[
-                    :, None
-                ]
-                soa_b = _expand_rows(ov, st + k, c_ext, k, 6)
-                xb_soa = soa_b[:3] - origin[:, None, None]
-                vb_soa = soa_b[3:]
-                rho_a, rho_b = pallas_ops.density_spill(
-                    x_soa, mask, xb_soa, mask_b, ext_grid, params,
-                    kernel=kernel, block=pallas_block,
-                    interpret=pallas_interpret, soa=True,
+                rho_d = jnp.where(
+                    mask, jnp.maximum(dense[..., 6], 0.1 * params.rho0),
+                    params.rho0,
                 )
-
-                def _finish_rho(rho, m):
-                    rho = jnp.where(
-                        m, jnp.maximum(rho, 0.1 * params.rho0), params.rho0
-                    )
-                    if density_renorm:
-                        rho = _renormalize_density(rho, params)
-                    return rho, jnp.where(m, tait_pressure(rho, params), 0.0)
-
-                rho_a, p_a = _finish_rho(rho_a, mask)
-                rho_b, p_b = _finish_rho(rho_b, mask_b)
-                acc_a, acc_b = pallas_ops.accel_spill(
-                    x_soa, v_soa, rho_a, p_a, mask,
-                    xb_soa, vb_soa, rho_b, p_b, mask_b,
-                    ext_grid, params, kernel=kernel, block=pallas_block,
-                    interpret=pallas_interpret, soa=True,
+                p_d = jnp.where(mask, tait_pressure(rho_d, params), 0.0)
+                out4 = sweeps.accel_drho(
+                    dense_x, dense_v, _with_sentinel(rho_d, params.rho0),
+                    _with_sentinel(p_d, 0.0), mask_s, nbr_ext, params,
+                    kernel, delta_sph,
                 )
-
-                def _tier(acc, rho, p, m):
-                    return jnp.concatenate(
-                        [
-                            acc,
-                            rho[..., None],
-                            p[..., None],
-                            m.astype(jnp.float32)[..., None],
-                        ],
-                        axis=-1,
-                    )
-
+                # bundle columns [acc3 | drho | - | live]
                 bundle = jnp.concatenate(
-                    [_tier(acc_a, rho_a, p_a, mask),
-                     _tier(acc_b, rho_b, p_b, mask_b)],
-                    axis=1,
-                )  # [c_ext, 2K, 6]
-            elif use_pallas:
-                rho_d = pallas_ops.density(
-                    x_soa, mask, ext_grid, params, kernel=kernel,
-                    block=pallas_block, interpret=pallas_interpret, soa=True,
+                    [out4, jnp.zeros_like(live), live], axis=-1
                 )
             else:
-                dense_x = jnp.concatenate(
-                    [
-                        jnp.moveaxis(x_soa, 0, -1),
-                        jnp.zeros((1, k, 3), jnp.float32),
-                    ]
+                rho_d = sweeps.density(
+                    dense_x, mask_s, nbr_ext, params, kernel
                 )
-                mask_s = jnp.concatenate([mask, jnp.zeros((1, k), bool)])
-                rho_d = _density_blocks(
-                    dense_x, mask_s, nbr_ext, params, kernel, block
-                )
-            if not spill and not continuity:
                 rho_d = jnp.where(
                     mask, jnp.maximum(rho_d, 0.1 * params.rho0), params.rho0
                 )
                 if density_renorm:
                     rho_d = _renormalize_density(rho_d, params)
                 p_d = jnp.where(mask, tait_pressure(rho_d, params), 0.0)
-
-                if use_pallas:
-                    acc_d = pallas_ops.accel(
-                        x_soa, v_soa, rho_d, p_d, mask, ext_grid, params,
-                        kernel=kernel, block=pallas_block,
-                        interpret=pallas_interpret, soa=True,
-                    )
-                else:
-                    dense_v = jnp.concatenate(
-                        [
-                            jnp.moveaxis(v_soa, 0, -1),
-                            jnp.zeros((1, k, 3), jnp.float32),
-                        ]
-                    )
-                    rho_sd = jnp.concatenate(
-                        [rho_d, jnp.full((1, k), params.rho0, rho_d.dtype)]
-                    )
-                    p_sd = jnp.concatenate(
-                        [p_d, jnp.zeros((1, k), p_d.dtype)]
-                    )
-                    acc_d = _accel_blocks(
-                        dense_x, dense_v, rho_sd, p_sd, mask_s, nbr_ext,
-                        params, kernel, block,
-                    )
-                live = mask.astype(jnp.float32)
+                acc_d = sweeps.accel(
+                    dense_x, dense_v, _with_sentinel(rho_d, params.rho0),
+                    _with_sentinel(p_d, 0.0), mask_s, nbr_ext, params,
+                    kernel,
+                )
                 bundle = jnp.concatenate(
-                    [acc_d, rho_d[..., None], p_d[..., None],
-                     live[..., None]],
-                    axis=-1,
+                    [acc_d, rho_d[..., None], p_d[..., None], live], axis=-1
                 )  # [c_ext, k, 6]
 
             # ---- compact core results through the window ----
@@ -518,13 +349,13 @@ def make_slab_step_fn(
             ) * nynz
             sw = jax.lax.dynamic_slice(slot_pad, (p0,), (w_rows,))
             win = bundle[
-                jnp.clip(cw, 0, c_ext - 1), jnp.clip(sw, 0, kt - 1)
+                jnp.clip(cw, 0, c_ext - 1), jnp.clip(sw, 0, k - 1)
             ]  # [w_rows, 6]
-            # dropped (cell-overflow) particles have slot >= kt: the
+            # dropped (cell-overflow) particles have slot >= k: the
             # clamped gather read a LIVE particle's row - zero it so
             # they fall back to the ballistic defaults (valid=0),
             # matching the global step's sentinel-row treatment
-            win = jnp.where((sw < kt)[:, None], win, 0.0)
+            win = jnp.where((sw < k)[:, None], win, 0.0)
             out = jax.lax.dynamic_update_slice(out, win, (p0, 0))
             rows_s = starts_ext[c0e + core0 + nxl * nynz] - p0
 
@@ -605,7 +436,7 @@ def slab_init_density(state, grid, params, n_slabs, **kw):
     layout would not fit): one jitted summation slab pass evaluates the
     SPH density at ``state.x`` (the returned aux density is computed
     from the PRE-step positions) and attaches it as ``state.rho``.
-    Extra ``kw`` forward to :func:`make_slab_step_fn` (e.g. ``spill``,
+    Extra ``kw`` forward to :func:`make_slab_step_fn` (e.g.
     ``use_pallas``, ``window``).
     """
     import jax as _jax

@@ -1,6 +1,6 @@
 """Fixed-capacity cell list for neighbor search.
 
-TPU constraint: no dynamic shapes under jit.  The cell list is a dense
+No dynamic shapes under jit: the cell list is a dense
 ``[n_cells + 1, capacity]`` slot array built with one sort + gathers;
 slot overflow drops particles from *neighbor interactions only* (they keep
 integrating ballistically) and is reported via the returned overflow count
@@ -51,17 +51,14 @@ def auto_capacity(x, lo, hi, support, headroom=1.5):
 
     Dense-slot waste is the single biggest SPH cost factor: pair math
     scales with ``capacity^2`` per cell, so a capacity 2x larger than
-    the real occupancy costs ~4x the FLOPs (measured on the
-    100k-particle dam break: 2.1x faster at capacity 32 than at the
-    old fixed default 64).  This picks the smallest multiple of 8 >=
-    ``headroom`` x the densest cell of ``x`` - WCSPH holds density
-    within a few percent of rest, so 1.5x headroom covers transients;
-    any residual overflow is counted (never silent) and only removes
-    the dropped particle from neighbor sums for that step.
+    the real occupancy costs ~4x the FLOPs.  This picks the smallest
+    multiple of 8 >= ``headroom`` x the densest cell of ``x`` - WCSPH
+    holds density within a few percent of rest, so 1.5x headroom covers
+    transients; any residual overflow is counted (never silent) and
+    only removes the dropped particle from neighbor sums for that step.
 
-    The XLA pair path takes any multiple of 8; the Pallas kernels
-    additionally want 64 or a multiple of 128 - at other sizes the
-    ``use_pallas="auto"`` policy keeps the (then cheaper) XLA path.
+    The jnp pair path runs any capacity; the Triton kernels pad it to
+    the next power of two (``tpgsd.sph.pair_kernel.padded_capacity``).
     """
     x = np.asarray(x)
     lo_a = np.asarray(lo, np.float64)
@@ -90,8 +87,8 @@ def neighbor_table(grid, periodic=False):
 
     Returned as a host (numpy) array: it is a trace-time constant, and
     eager device placement would cost a host->device transfer at trace
-    time (pathologically slow on tunneled runtimes) for no benefit -
-    embedded constants ship with the compiled executable.
+    time for no benefit - embedded constants ship with the compiled
+    executable.
     """
     nx, ny, nz = grid.dims
     ix, iy, iz = np.meshgrid(
@@ -169,13 +166,10 @@ def _sorted_slot_map(cid, n_query, capacity, live_rows=None):
     n = cid.shape[0]
     iota = jnp.arange(n, dtype=jnp.int32)
     # two-operand sort returns the sorted keys AND the permutation in one
-    # pass - `cid[order]` as a separate 1-D gather measured 6.6 ms at 1M
-    # particles on v5e (TPU gathers move (8,128) tiles regardless of
-    # element width, so thin gathers run ~100x below HBM bandwidth)
+    # pass, with no separate `cid[order]` gather
     cid_s, order = jax.lax.sort((cid, iota), num_keys=1)
     # method="sort" lowers to one extra O(n+C) sort; the default binary
-    # search lowers to a log2(n)-iteration while loop of thin gathers -
-    # 36 ms/step at 1M particles vs ~2 ms for the sort
+    # search lowers to a log2(n)-iteration while loop of thin gathers
     starts = jnp.searchsorted(
         cid_s, jnp.arange(n_query, dtype=cid_s.dtype), method="sort"
     ).astype(jnp.int32)
@@ -187,7 +181,7 @@ def _sorted_slot_map(cid, n_query, capacity, live_rows=None):
     gidx = jnp.where(valid, starts[:, None] + kslots[None, :], n)
     # slot = position within the cell's sorted run; the run start comes
     # from a cummax over boundary positions (associative scan) instead
-    # of the thin `starts[cid_s]` gather (another 6.6 ms at 1M)
+    # of the thin `starts[cid_s]` gather
     boundary = jnp.concatenate(
         [jnp.ones((1,), bool), cid_s[1:] != cid_s[:-1]]
     )
@@ -196,76 +190,15 @@ def _sorted_slot_map(cid, n_query, capacity, live_rows=None):
     return order, cid_s, valid, gidx, slot, starts
 
 
-class SpillCells(NamedTuple):
-    """Second-tier dense layout: slots ``[K, K + k_spill)`` of each cell.
-
-    Companion to :class:`CellList` from :func:`build_cells_spill` — holds
-    the *excess* particles of cells denser than ``grid.capacity`` so the
-    main layout can be sized to the TYPICAL occupancy instead of the
-    worst cell (pair math scales with rows ~ 1/f = K/128 in the packed
-    Pallas layout, and the spill tier is almost everywhere empty, so its
-    pair passes are skipped by the occupancy flags).  Same dense
-    ``[n_cells + 1, k_spill]`` shape conventions as the main layout
-    (sentinel last row, ``n`` = empty in ``gidx``).
-    """
-
-    gidx: jax.Array  # [n_cells+1, k_spill] sorted-order gather map
-    mask: jax.Array  # [n_cells+1, k_spill]
-
-
-@partial(jax.jit, static_argnums=(1, 2))
-def build_cells_spill(x, grid, k_spill):
-    """Two-tier cell assignment: main layout (slots ``< K``) plus a
-    spill layout (slots ``[K, K + k_spill)``).
-
-    One sort + the same elementwise maps as :func:`build_cells`; the
-    spill tier costs one extra comparison pass, no extra sort.  The
-    returned :class:`CellList` counts overflow past ``K + k_spill`` and
-    clamps dropped slots there, so :func:`gather_from_cells_spill` (or
-    :func:`gather_from_cells` with ``capacity=K + k_spill``) routes
-    every retained particle to its tier.
-    """
-    n = x.shape[0]
-    c = grid.n_cells
-    k = grid.capacity
-    cid = cell_id(x, grid)
-    order, cid_s, valid, gidx, slot, starts = _sorted_slot_map(cid, c, k)
-    gidx = jnp.concatenate([gidx, jnp.full((1, k), n, jnp.int32)])
-    mask = jnp.concatenate([valid, jnp.zeros((1, k), bool)])
-
-    counts = jnp.diff(jnp.concatenate([starts, jnp.full((1,), n, jnp.int32)]))
-    ks2 = k + jnp.arange(k_spill, dtype=jnp.int32)
-    valid2 = ks2[None, :] < jnp.minimum(counts, k + k_spill)[:, None]
-    gidx2 = jnp.where(valid2, starts[:, None] + ks2[None, :], n)
-    gidx2 = jnp.concatenate([gidx2, jnp.full((1, k_spill), n, jnp.int32)])
-    mask2 = jnp.concatenate([valid2, jnp.zeros((1, k_spill), bool)])
-
-    dropped = slot >= k + k_spill
-    slot = jnp.where(dropped, k + k_spill, slot)
-    cells = CellList(
-        order=order,
-        cid=cid_s,
-        slot=slot,
-        gidx=gidx,
-        mask=mask,
-        overflow=dropped.sum().astype(jnp.int32),
-        starts=starts,
-    )
-    return cells, SpillCells(gidx=gidx2, mask=mask2)
-
-
 @partial(jax.jit, static_argnums=1)
 def build_cells(x, grid):
     """Assign particles to cells, scatter-free: one sort, one binary
     search, then pure gathers.
 
-    XLA lowers scatters to serialized updates on TPU (~4x the cost of
-    the equivalent gather at 100k particles on v5e) while its sorts are
-    nearly free (0.2 ms), so the dense layout is a GATHER: slot
-    (cell, j) reads sorted position ``starts[cell] + j``, and the
-    ``gidx`` map encoding that is pure elementwise arithmetic (an
-    earlier variant materialized original-order indices with an extra
-    [c, K] gather - measurable at 1M particles).
+    The dense layout is a GATHER: slot (cell, j) reads sorted position
+    ``starts[cell] + j``, and the ``gidx`` map encoding that is pure
+    elementwise arithmetic - no scatter, no extra ``[c, K]`` index
+    gather.
 
     Returns a :class:`CellList`; use :func:`scatter_to_cells` to lay
     per-particle quantities out densely and :func:`gather_from_cells` to
@@ -293,106 +226,29 @@ def build_cells(x, grid):
     )
 
 
-def scatter_to_cells(values, cells, grid, fill=0.0, gidx=None):
+def scatter_to_cells(values, cells, grid, fill=0.0):
     """Lay per-particle ``values`` (particle order) out in the dense
     ``[n_cells+1, capacity, ...]`` layout (sentinel row stays ``fill``).
 
     Despite the name this is gathers, not scatters: one N-row gather
     into sorted order, then one dense gather through the elementwise
-    ``cells.gidx`` map - see :func:`build_cells` for why scatters are
-    avoided on TPU.  Pass ``gidx=spill.gidx`` to lay out the spill tier
-    of :func:`build_cells_spill` instead."""
+    ``cells.gidx`` map (see :func:`build_cells`)."""
     trailing = values.shape[1:]
     pad = jnp.full((1,) + trailing, fill, values.dtype)
     vs = jnp.concatenate([values[cells.order], pad])
-    return vs[cells.gidx if gidx is None else gidx]
+    return vs[cells.gidx]
 
 
-#: particles per gathered row of the SoA fast path.  16 particles x 8
-#: feature lanes = 128-lane rows: zero tile padding on the row view
-#: (the 8-particle/64-lane variant carried a 2x pad - 6 GB dead weight
-#: at 1e8 particles) and ~1.75x fewer gather rows per cell.
-_GRAN = 16
-
-
-def _row_view(values_sorted, n, k, f, slot_base=0):
-    """Pad ``[n, F<=8]`` sorted values and build the ``[M/16, 128]``
-    16-particle row view ``ov[m, 8a + g] = vs8[16m + a, g]``.
-
-    Built with a strided-slice lane concat, NOT a reshape: a
-    ``[M, 8] -> [M/16, 128]`` reshape forces a row-major tiled copy
-    whose (8, 128) tiles pad the 8-wide minor dim 16x - 51 GB at 1e8
-    particles.  The concat form is one fused copy pass to an unpadded
-    128-lane layout.
-    """
-    mp = -(-(n + slot_base + k + 4 * _GRAN) // _GRAN) * _GRAN
-    vs8 = jnp.pad(values_sorted, ((0, mp - n), (0, 8 - f)))
-    return jnp.concatenate([vs8[a::_GRAN, :] for a in range(_GRAN)], axis=1)
-
-
-def _expand_rows(ov, starts_slice, n_rows, k, f):
-    """Dense SoA ``[f, n_rows, k]`` from the 16-particle row view.
-
-    TPU row gathers are index-rate-bound (~4.3 cycles per gathered row
-    regardless of row width), so instead of one thin ``[F]`` row per
-    dense slot (``n_rows * K`` rows) this gathers ROWS OF 16 SORTED
-    PARTICLES: each cell's run is covered by ``ceil(K/16) + 1``
-    consecutive view rows from its 16-aligned run start, and the
-    residual misalignment (``starts & 15``) is fixed with one 16-way
-    ``lax.select_n`` over static lane slices - 16x fewer gather rows.
-    """
-    nrow = -(-k // _GRAN) + 1
-    row_idx = (starts_slice // _GRAN)[:, None] + jnp.arange(
-        nrow, dtype=jnp.int32
-    )[None, :]
-    buf = ov[row_idx].reshape(n_rows, nrow * _GRAN * 8)
-    par = (starts_slice % _GRAN).astype(jnp.int32)
-    which = jnp.broadcast_to(par[:, None], (n_rows, k * 8))
-    rot = jax.lax.select_n(
-        which, *[buf[:, 8 * p : 8 * p + 8 * k] for p in range(_GRAN)]
-    )  # [n_rows, K*8], (slot, feature) lane-minor
-    return jnp.stack([rot[:, p::8] for p in range(f)])
-
-
-def scatter_to_cells_soa(values, cells, grid, slot_base=0, capacity=None):
-    """Cell-dense SoA layout ``[F, n_cells, K]`` of 2-D per-particle
-    ``values`` (``[N, F]``, F <= 8) via 16-particle row gathers - 3.5x
-    the AoS :func:`scatter_to_cells` + transpose at 1M particles on
-    v5e (see :func:`_row_view` / :func:`_expand_rows` for the two-level
-    trick and its layout rationale).
-
-    Live slots are bit-identical to :func:`scatter_to_cells`; DEAD
-    slots carry (masked) neighbor-run values instead of zeros, so
-    consumers must mask - every pair path already does.  No sentinel
-    row is appended (the Pallas kernels never read one).
-
-    ``slot_base``/``capacity`` select a slot window ``[slot_base,
-    slot_base + capacity)`` of each cell's sorted run - the spill tier
-    of :func:`build_cells_spill` is ``slot_base=K, capacity=k_spill``.
-    """
-    n, f = values.shape
-    k = grid.capacity if capacity is None else capacity
-    if f > 8 or k % 8 != 0:
-        raise ValueError("scatter_to_cells_soa needs F <= 8, K % 8 == 0")
-    vs = values[cells.order].astype(jnp.float32)
-    ov = _row_view(vs, n, k, f, slot_base=slot_base)
-    return _expand_rows(ov, cells.starts + slot_base, grid.n_cells, k, f)
-
-
-def gather_from_cells(dense, cells, grid, capacity=None):
+def gather_from_cells(dense, cells, grid):
     """Gather per-slot ``dense`` values back to particle order.
 
-    Dropped (overflow) particles read the sentinel row.  For the
-    two-tier spill layout pass the concatenated ``[n_cells+1, K +
-    k_spill, ...]`` dense array with ``capacity=K + k_spill`` - slots
-    route to their tier automatically (spill slots index past ``K``).
+    Dropped (overflow) particles read the sentinel row.
     """
-    kc = grid.capacity if capacity is None else capacity
+    kc = grid.capacity
     slot = jnp.minimum(cells.slot, kc - 1)
     cid = jnp.where(cells.slot >= kc, grid.n_cells, cells.cid)
     sorted_vals = dense[cid, slot]
-    # inverse permutation by sorting the permutation (one ~1.3 ms sort
-    # at 1M) - the scatter `zeros.at[order].set(iota)` serializes on TPU
-    # (measured 5.9 ms at 1M)
+    # inverse permutation by sorting the permutation instead of the
+    # scatter `zeros.at[order].set(iota)`
     inv = jnp.argsort(cells.order)
     return sorted_vals[inv]

@@ -36,24 +36,20 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from .cells import CellGrid, _sorted_slot_map, neighbor_table
 from .kernels import WendlandC2
 from .step import (
-    _accel_blocks,
-    _accel_drho_blocks,
     _st_force_blocks,
     _st_normals_blocks,
-    _density_blocks,
     _energy_blocks,
     _mimage_of,
     _renormalize_density,
     _xsph_blocks,
+    pair_sweeps,
+    resolve_use_pallas,
     tait_pressure,
 )
 
@@ -88,7 +84,7 @@ class DistAux(NamedTuple):
 def _local_cells(x, alive, nxl, ny, nz, capacity, lo_local, cell_size):
     """Cell assignment for one device's slab (x-major local ids),
     scatter-free: one sort + one binary search + gathers (scatters
-    serialize on TPU; see ``tpgsd.sph.cells.build_cells``).
+    are avoided; see ``tpgsd.sph.cells.build_cells``).
 
     Dead slots sort into a sentinel cell past the grid.  Returns
     (cid_sorted, slot, order, gidx, mask, overflow) where ``gidx`` is
@@ -210,7 +206,7 @@ def make_distributed_step_fn(
     kernel=WendlandC2,
     block=32,
     use_pallas="auto",
-    pallas_block=None,
+    pallas_interpret=False,
     n_fixed=0,
     periodic=False,
     compute_energy=False,
@@ -218,7 +214,6 @@ def make_distributed_step_fn(
     xsph=0.0,
     density_renorm=False,
     surface_tension=0.0,
-    spill="auto",
     density_mode="summation",
     delta_sph=0.1,
     _traced_dt=False,
@@ -245,8 +240,8 @@ def make_distributed_step_fn(
         periodic: periodic global box.  The x axis wraps through the
             RING halo (device n-1 exchanges planes and migrants with
             device 0 - ppermute with a ring permutation); y/z wrap
-            locally - in the cell table (jnp path) or as ghost-cell
-            halos (Pallas path) - when they have >= 3 cells.
+            locally, in the cell table and the minimum image, when they
+            have >= 3 cells.
         compute_energy: also run the WCSPH energy equation (a third
             pair pass reusing the halo-exchanged rho/p) and return
             per-particle du/dt in ``aux.dudt`` (zeros when off - the
@@ -265,18 +260,9 @@ def make_distributed_step_fn(
             grid, gravity, and state is exact - one column permutation
             per step each way, no second slab implementation to keep
             in sync.
-        spill: two-tier cell layout (Pallas path only), as in
-            :func:`tpgsd.sph.make_step_fn`: ``grid.capacity`` sizes the
-            MAIN tier at the typical cell occupancy and denser cells
-            overflow into an equal-capacity, flag-skipped spill tier.
-            The local dense layout, halo payloads and particle gather
-            simply run at ``2 * capacity`` slot width (the concatenated
-            tiers are slot-identical to a single tier of capacity 2K);
-            only the density/accel pair passes split into the
-            cross-tier spill kernels.  ``"auto"`` turns it on when the
-            resolved Pallas path supports it.  Extra jnp pair passes
-            (xsph / energy / surface tension) run over the concatenated
-            tiers at single-tier-2K cost.
+        use_pallas / pallas_interpret: the pair-sweep path, as in
+            :func:`tpgsd.sph.make_step_fn`; the Triton kernels run
+            inside the ``shard_map`` on each device's extended slab.
         density_mode: ``"summation"`` (default) re-sums density each
             step; ``"continuity"`` evolves it as carried per-particle
             state (``DistState.rho``, seeded globally with
@@ -314,7 +300,7 @@ def make_distributed_step_fn(
             kernel=kernel,
             block=block,
             use_pallas=use_pallas,
-            pallas_block=pallas_block,
+            pallas_interpret=pallas_interpret,
             n_fixed=n_fixed,
             periodic=periodic,
             compute_energy=compute_energy,
@@ -322,7 +308,6 @@ def make_distributed_step_fn(
             xsph=xsph,
             density_renorm=density_renorm,
             surface_tension=surface_tension,
-            spill=spill,
             density_mode=density_mode,
             delta_sph=delta_sph,
             _traced_dt=_traced_dt,
@@ -401,45 +386,8 @@ def make_distributed_step_fn(
             "delta_sph for its noise control instead"
         )
 
-    from . import pallas_ops as _po
-
-    if use_pallas == "auto":
-        use_pallas = jax.default_backend() == "tpu" and (
-            _po.accel_drho_supported(ext_grid)
-            if continuity
-            else _po.supported(ext_grid)
-        )
-    if spill == "auto":
-        spill = (
-            jax.default_backend() == "tpu"
-            and bool(use_pallas)
-            and _po.spill_supported(ext_grid)
-        )
-    if spill:
-        if not use_pallas:
-            raise ValueError(
-                "spill=True requires use_pallas - the two-tier layout "
-                "exists for the packed Pallas kernels"
-            )
-        if not _po.spill_supported(ext_grid):
-            raise ValueError(
-                "spill needs a packed capacity (24 <= K <= 64, multiple "
-                "of 8); got %d" % k
-            )
-    # dense slot width of the local layout: the two spill tiers ride
-    # the layout/halo/gather machinery CONCATENATED (slot-identical to
-    # a single tier of capacity 2K); only the pair passes split tiers
-    kd = 2 * k if spill else k
-    # the slab's x periodicity flows through the ring halo; only the
-    # LOCAL y/z wraps reach the kernels, as ghost-cell halos
-    pallas_wrap = (
-        (False, bool(wrap[1]), bool(wrap[2])) if periodic else None
-    )
-    if pallas_block is None:
-        pallas_block = _po.default_block(ext_grid)
-    if use_pallas:
-        from . import pallas_ops
-
+    use_pallas = resolve_use_pallas(use_pallas)
+    sweeps = pair_sweeps(use_pallas, block, interpret=pallas_interpret)
     if periodic:
         # ring: device n-1 is device 0's left neighbor
         send_right = [(i, (i + 1) % n_dev) for i in range(n_dev)]
@@ -458,7 +406,7 @@ def make_distributed_step_fn(
         lo_local = lo_g + jnp.asarray([d * nxl * cell, 0.0, 0.0], jnp.float32)
 
         cid_s, slot, order, gidx, mask, cell_ovf = _local_cells(
-            x, alive, nxl, ny, nz, kd, lo_local, cell
+            x, alive, nxl, ny, nz, k, lo_local, cell
         )
         core = slice(nynz, nynz + c_local)
 
@@ -529,33 +477,15 @@ def make_distributed_step_fn(
             ext_x = ext_x.at[:nynz, :, 0].add(sl)
             ext_x = ext_x.at[nynz + c_local : 2 * nynz + c_local, :, 0].add(sr)
 
-        sent_rho = jnp.full((1, kd), params.rho0, jnp.float32)
+        sent_rho = jnp.full((1, k), params.rho0, jnp.float32)
         if not continuity:
             # density over the extended slab; only CORE outputs are
             # correct (a ghost cell's own neighborhood extends one plane
             # further out than the halo carries - its locally-computed
             # density misses those contributions)
-            if spill:
-                # tier split happens HERE only: slots < K are the main
-                # tier, slots >= K the spill tier (the concatenated
-                # layout is slot-identical to build_cells_spill's)
-                rho_ab = pallas_ops.density_spill(
-                    ext_x[:, :k], ext_mask[:, :k],
-                    ext_x[:, k:], ext_mask[:, k:],
-                    ext_grid, params, kernel=kernel, block=pallas_block,
-                    wrap_axes=pallas_wrap,
-                )
-                rho_d = jnp.concatenate(rho_ab, axis=1)
-            elif use_pallas:
-                rho_d = pallas_ops.density(
-                    ext_x, ext_mask, ext_grid, params, kernel=kernel,
-                    block=pallas_block, wrap_axes=pallas_wrap,
-                )
-            else:
-                rho_d = _density_blocks(
-                    ext_x, ext_mask, nbr_ext, params, kernel, block,
-                    mimage=mimage,
-                )
+            rho_d = sweeps.density(
+                ext_x, ext_mask, nbr_ext, params, kernel, mimage=mimage
+            )
 
             mask_core = ext_mask[core]
             rho_core = jnp.where(
@@ -597,60 +527,22 @@ def make_distributed_step_fn(
 
             rho_d = jnp.concatenate([gl_rho, rho_core, gr_rho, sent_rho])
             p_d = jnp.concatenate(
-                [gl_p, p_core, gr_p, jnp.zeros((1, kd), p_core.dtype)]
+                [gl_p, p_core, gr_p, jnp.zeros((1, k), p_core.dtype)]
             )
 
         if continuity:
-            if spill:
-                # cross-tier fused accel+drho: the tiers ride the
-                # layout/halo concatenated (kd = 2K); only this pair
-                # pass splits them (same contract as the summation
-                # spill branch below)
-                out_ab = pallas_ops.accel_drho_spill(
-                    ext_x[:, :k], ext_v[:, :k], rho_d[:, :k], p_d[:, :k],
-                    ext_mask[:, :k],
-                    ext_x[:, k:], ext_v[:, k:], rho_d[:, k:], p_d[:, k:],
-                    ext_mask[:, k:],
-                    ext_grid, params, kernel=kernel, delta_sph=delta_sph,
-                    block=pallas_block,
-                    wrap_axes=pallas_wrap,
-                )
-                out4_d = jnp.concatenate(out_ab, axis=1)
-            elif use_pallas:
-                # the fused accel+drho Pallas kernel on the extended
-                # local grid - same ext-grid contract as density/accel
-                # (only CORE outputs are owner-correct; ghosts carry
-                # exact carried densities, so no second exchange)
-                out4_d = pallas_ops.accel_drho(
-                    ext_x, ext_v, rho_d, p_d, ext_mask, ext_grid, params,
-                    kernel=kernel, delta_sph=delta_sph, block=pallas_block,
-                    wrap_axes=pallas_wrap,
-                )
-            else:
-                out4_d = _accel_drho_blocks(
-                    ext_x, ext_v, rho_d, p_d, ext_mask, nbr_ext, params,
-                    kernel, block, delta_sph, mimage=mimage,
-                )
+            # the fused accel+drho sweep on the extended local grid
+            # (only CORE outputs are owner-correct; ghosts carry exact
+            # carried densities, so no second exchange)
+            out4_d = sweeps.accel_drho(
+                ext_x, ext_v, rho_d, p_d, ext_mask, nbr_ext, params,
+                kernel, delta_sph, mimage=mimage,
+            )
             acc_d = out4_d[..., :3]
-        elif spill:
-            acc_ab = pallas_ops.accel_spill(
-                ext_x[:, :k], ext_v[:, :k], rho_d[:, :k], p_d[:, :k],
-                ext_mask[:, :k],
-                ext_x[:, k:], ext_v[:, k:], rho_d[:, k:], p_d[:, k:],
-                ext_mask[:, k:],
-                ext_grid, params, kernel=kernel, block=pallas_block,
-                wrap_axes=pallas_wrap,
-            )
-            acc_d = jnp.concatenate(acc_ab, axis=1)
-        elif use_pallas:
-            acc_d = pallas_ops.accel(
-                ext_x, ext_v, rho_d, p_d, ext_mask, ext_grid, params,
-                kernel=kernel, block=pallas_block, wrap_axes=pallas_wrap,
-            )
         else:
-            acc_d = _accel_blocks(
+            acc_d = sweeps.accel(
                 ext_x, ext_v, rho_d, p_d, ext_mask, nbr_ext, params, kernel,
-                block, mimage=mimage,
+                mimage=mimage,
             )
         if surface_tension > 0:
             # Akinci surface tension needs neighbor NORMALS; like rho/p,
@@ -666,7 +558,7 @@ def make_distributed_step_fn(
             )
             gr_n = jax.lax.ppermute(n_core[:nynz], axis_name, send_left)
             n_d = jnp.concatenate(
-                [gl_n, n_core, gr_n, jnp.zeros((1, kd, 3), n_core.dtype)]
+                [gl_n, n_core, gr_n, jnp.zeros((1, k, 3), n_core.dtype)]
             )
             n_d = jnp.where(ext_mask[..., None], n_d, 0.0)
             acc_d = acc_d + _st_force_blocks(
@@ -678,15 +570,15 @@ def make_distributed_step_fn(
         # particle-order gather - n-element gathers are the layout
         # cost, one fused pass instead of three/four
         cols = [acc_d[core]]
-        sent = [jnp.zeros((1, kd, 3), acc_d.dtype)]
+        sent = [jnp.zeros((1, k, 3), acc_d.dtype)]
         if continuity:
             # drho sentinel is 0: cell-overflow-dropped particles keep
             # their carried density, as on the single-device path
             cols.append(out4_d[core][..., 3:4])
-            sent.append(jnp.zeros((1, kd, 1), acc_d.dtype))
+            sent.append(jnp.zeros((1, k, 1), acc_d.dtype))
         else:
             cols += [rho_core[..., None], p_core[..., None]]
-            sent += [sent_rho[..., None], jnp.zeros((1, kd, 1), p_core.dtype)]
+            sent += [sent_rho[..., None], jnp.zeros((1, k, 1), p_core.dtype)]
         if compute_energy:
             # third pair pass over the same halo-exchanged fields: the
             # energy equation shares _pair_terms with the momentum
@@ -696,7 +588,7 @@ def make_distributed_step_fn(
                 block, mimage=mimage,
             )
             cols.append(du_d[core][..., None])
-            sent.append(jnp.zeros((1, kd, 1), du_d.dtype))
+            sent.append(jnp.zeros((1, k, 1), du_d.dtype))
         if xsph > 0:
             # XSPH over the halo-exchanged velocities and owner-correct
             # rho (an extra pair pass; same semantics as single-device)
@@ -705,13 +597,13 @@ def make_distributed_step_fn(
                 block, mimage=mimage,
             )
             cols.append(dvc_d[core])
-            sent.append(jnp.zeros((1, kd, 3), dvc_d.dtype))
+            sent.append(jnp.zeros((1, k, 3), dvc_d.dtype))
         bundle = jnp.concatenate(
             [jnp.concatenate(cols, axis=-1),
              jnp.concatenate(sent, axis=-1)],
             axis=0,
         )
-        out = _gather(bundle, cid_s, slot, order, c_local, kd)
+        out = _gather(bundle, cid_s, slot, order, c_local, k)
         acc = out[..., :3] + gravity
         if continuity:
             # density update rides the state directly: integrate the
@@ -886,16 +778,9 @@ def make_distributed_step_fn(
         + ((P(),) if _traced_dt else ()),
         out_specs=(spec,) * n_out,
     )
-    if use_pallas:
-        # pallas_call outputs carry no varying-mesh-axes annotation;
-        # disable the replication checker for the kernel-backed variant
-        # (parameter name differs across jax versions)
-        try:
-            mapped = shard_map(fn, check_vma=False, **sm_kwargs)
-        except TypeError:
-            mapped = shard_map(fn, check_rep=False, **sm_kwargs)
-    else:
-        mapped = shard_map(fn, **sm_kwargs)
+    # pallas_call outputs carry no varying-mesh-axes annotation, so the
+    # kernel-backed variant runs without the replication checker
+    mapped = shard_map(fn, check_vma=not use_pallas, **sm_kwargs)
 
     st_sh = DistState(x=sh, v=sh, pid=sh, rho=sh if continuity else None)
 

@@ -11,12 +11,13 @@ fields, pgsd/doc/pgsd.tex:525-565):
 * symplectic Euler (kick-drift) + reflective box walls
 
 Compute structure: all pair interactions happen inside 27-cell
-neighborhoods of the dense cell layout (``tpgsd.sph.cells``).  Cells are
-processed in fixed-size blocks under ``lax.map`` so the peak intermediate
-is ``[block, K, 27K]`` - a few MB - regardless of domain size.  Everything
-is static-shaped, mask-predicated jnp; XLA fuses the pair math into a
-handful of kernels, and the per-block inner product can be routed through
-the MXU Pallas kernel (``tpgsd.sph.pallas_ops``).
+neighborhoods of the dense cell layout (``tpgsd.sph.cells``).  The plain
+path processes cells in fixed-size blocks under ``lax.map`` so the peak
+intermediate is ``[block, K, 27K]`` - a few MB - regardless of domain
+size; everything is static-shaped, mask-predicated jnp.  On a GPU the
+density, accel and fused accel+drho sweeps run as Pallas kernels
+through Triton instead (``tpgsd.sph.pair_kernel``), one program per
+cell with the pair block in registers.
 
 Multi-chip: jit the returned step function with the particle axis sharded
 (``NamedSharding(mesh, P("shard"))``); the scatter/gather between particle
@@ -33,11 +34,9 @@ import jax.numpy as jnp
 
 from .cells import (
     build_cells,
-    build_cells_spill,
     gather_from_cells,
     neighbor_table,
     scatter_to_cells,
-    scatter_to_cells_soa,
 )
 from .kernels import WendlandC2
 
@@ -150,9 +149,8 @@ def _renormalize_density(rho, params):
     i.e. the Hughes & Graham (2010) free-surface density floor, derived
     rather than asserted.  It removes the free-surface support-truncation
     deficit (raw summation measures ~0.85 rho0 at a surface) and the
-    spurious NEGATIVE Tait pressures that deficit produces - the source
-    of the hydrostatic ringing in the round-1 ledger (NEXT.md
-    "Quality").  Costs nothing: no extra pair pass.
+    spurious NEGATIVE Tait pressures that deficit produces - a source
+    of hydrostatic ringing.  Costs nothing: no extra pair pass.
 
     Note the *general* Shepard filter ``rho / sum_j (m/rho_j) W_ij``
     with the current densities is a no-op for summation density (the
@@ -644,20 +642,94 @@ def _spmd_device_count(sharding):
     )
 
 
+def resolve_use_pallas(use_pallas="auto", gspmd=False):
+    """The one kernel policy of every step builder.
+
+    ``"auto"`` picks the Triton pair kernels on a GPU backend unless the
+    step is GSPMD-partitioned (a ``pallas_call`` is a custom call GSPMD
+    cannot partition); elsewhere it picks the jnp pair blocks.  An
+    explicit ``True`` under GSPMD raises instead of failing at lowering.
+    """
+    if use_pallas == "auto":
+        return not gspmd and jax.default_backend() == "gpu"
+    if use_pallas and gspmd:
+        raise ValueError(
+            "use_pallas=True cannot run under GSPMD-partitioned inputs: "
+            "GSPMD does not partition a pallas_call.  Use "
+            "make_distributed_step_fn (or the 2-D/3-D variants), which "
+            "run the kernels inside shard_map, or leave use_pallas='auto'."
+        )
+    return bool(use_pallas)
+
+
+class PairSweeps(NamedTuple):
+    """The three neighbour sweeps of a step, with one signature each:
+    ``density(x, mask, nbr, params, kernel, mimage=)``,
+    ``accel(x, v, rho, p, mask, nbr, params, kernel, mimage=)`` and
+    ``accel_drho(x, v, rho, p, mask, nbr, params, kernel, delta_sph,
+    mimage=)``."""
+
+    density: object
+    accel: object
+    accel_drho: object
+
+
+def pair_sweeps(use_pallas, block=32, interpret=False):
+    """Pair sweeps of the resolved path: the Triton kernels of
+    :mod:`tpgsd.sph.pair_kernel` or the jnp blocks of this module."""
+    if use_pallas:
+        from . import pair_kernel as pk
+
+        def density(x, mask, nbr, params, kernel, mimage=None):
+            return pk.density(
+                x, mask, nbr, params, kernel, mimage=mimage,
+                interpret=interpret,
+            )
+
+        def accel(x, v, rho, p, mask, nbr, params, kernel, mimage=None):
+            return pk.accel(
+                x, v, rho, p, mask, nbr, params, kernel, mimage=mimage,
+                interpret=interpret,
+            )
+
+        def accel_drho(x, v, rho, p, mask, nbr, params, kernel, delta_sph,
+                       mimage=None):
+            return pk.accel_drho(
+                x, v, rho, p, mask, nbr, params, kernel,
+                delta_sph=delta_sph, mimage=mimage, interpret=interpret,
+            )
+
+        return PairSweeps(density, accel, accel_drho)
+
+    def density(x, mask, nbr, params, kernel, mimage=None):
+        return _density_blocks(x, mask, nbr, params, kernel, block, mimage)
+
+    def accel(x, v, rho, p, mask, nbr, params, kernel, mimage=None):
+        return _accel_blocks(
+            x, v, rho, p, mask, nbr, params, kernel, block, mimage
+        )
+
+    def accel_drho(x, v, rho, p, mask, nbr, params, kernel, delta_sph,
+                   mimage=None):
+        return _accel_drho_blocks(
+            x, v, rho, p, mask, nbr, params, kernel, block, delta_sph, mimage
+        )
+
+    return PairSweeps(density, accel, accel_drho)
+
+
 def make_step_fn(
     grid,
     params,
     kernel=WendlandC2,
     block=32,
     use_pallas="auto",
-    pallas_interpret=None,
-    pallas_block=None,
+    pallas_interpret=False,
     n_fixed=0,
     periodic=False,
     density_renorm=False,
     xsph=0.0,
     surface_tension=0.0,
-    spill="auto",
     density_mode="summation",
     delta_sph=0.1,
     sharding=None,
@@ -676,18 +748,15 @@ def make_step_fn(
         params: :class:`SPHParams`.
         kernel: smoothing kernel class.
         block: cells per ``lax.map`` block (memory/parallelism knob).
-        use_pallas: route density/force inner loops through the Pallas
-            windowed-stencil kernels - measured on v5e: 1.7x faster
-            than the jnp path when ``grid.capacity`` is a multiple of
-            128 (lane-native), 1.15x at capacities dividing 128 (the
-            packed two-cells-per-row layout); see
-            ``tpgsd.sph.pallas_ops``.  ``"auto"`` (the default) selects
-            them exactly in those regimes (TPU backend and a supported
-            capacity); elsewhere it resolves to the jnp path.
-        pallas_interpret: force/disable Pallas interpreter mode (default:
-            interpret everywhere except on real TPU hardware).
-        pallas_block: cells per kernel program (default: the
-            measured-best block for the selected kernel path).
+        use_pallas: run the density, accel and fused accel+drho sweeps
+            as the Triton Pallas kernels of
+            :mod:`tpgsd.sph.pair_kernel` instead of the jnp pair blocks.
+            ``"auto"`` (the default) picks them on a GPU backend when
+            the step is not GSPMD-partitioned (see ``sharding``); see
+            :func:`resolve_use_pallas`.
+        pallas_interpret: run those kernels in the Pallas interpreter
+            (CPU tests).  Off unless asked for: a compiled kernel on a
+            backend without Triton raises.
         n_fixed: the first ``n_fixed`` particles are static boundary
             particles: they contribute to density and pressure forces
             (the standard dummy-particle wall treatment) but never move.
@@ -697,9 +766,8 @@ def make_step_fn(
             collapsed-z 2-D layout composes naturally).  HOOMD-schema
             boxes are periodic by convention, so trajectories written
             from a periodic run match downstream tooling's reading of
-            the box chunk.  Works with both compute paths: the Pallas
-            kernels receive wrapped axes as a pre-shifted ghost-cell
-            halo (``tpgsd.sph.pallas_ops._ghost_maps``).
+            the box chunk.  Works with both compute paths: both apply
+            the same minimum image (:func:`_mimage_of`).
         density_renorm: renormalize the summation density with the
             clipped rest-volume Shepard filter, whose closed form is the
             Hughes-Graham density floor ``max(rho, rho0)`` (derivation
@@ -723,27 +791,6 @@ def make_step_fn(
             Costs two extra (jnp) pair passes (normals, then forces)
             regardless of the density/accel compute path.  See
             :func:`_cohesion_blocks`.
-        spill: two-tier cell layout (Pallas path only).  ``grid.capacity``
-            sizes the MAIN tier - set it just above the typical cell
-            occupancy instead of the worst cell (e.g.
-            ``auto_capacity(x, ..., headroom=1.15)``) - and cells denser
-            than that overflow into an equal-capacity spill tier whose
-            pair passes are almost always skipped by the occupancy
-            flags.  Packed-row pair math scales with ``capacity/128``,
-            so main-tier 32 runs ~2x the pair math rate of the
-            single-tier worst-case 48+ while keeping every particle in
-            the sums (overflow only past ``2 * capacity``).  Requires
-            ``use_pallas`` and a packed capacity (24-64, multiple of 8);
-            composes with ``periodic`` (ghost-halo tiers), with
-            ``density_renorm``, with ``xsph``/``surface_tension``
-            (those extra jnp pair passes run over the two tiers
-            concatenated, at single-tier-2K cost), and with
-            ``density_mode="continuity"`` (the fused accel+drho pass
-            splits into the four cross-tier sweeps of
-            ``pallas_ops.accel_drho_spill``).  ``"auto"`` (the
-            default) turns it on exactly when running on a TPU backend
-            and the resolved Pallas path supports it - the
-            measured-fastest configuration is the default one.
         density_mode: ``"summation"`` (default) re-sums density from
             positions every step - self-correcting, parameter-free,
             but needs its own neighbor sweep and carries the kernel's
@@ -767,33 +814,24 @@ def make_step_fn(
         sharding: REQUIRED hint when the step will be jitted with
             GSPMD-partitioned inputs (``jax.jit(step, in_shardings=
             NamedSharding(mesh, P("shard")))``): pass the mesh, the
-            NamedSharding, or the device count.  Mosaic (Pallas)
-            kernels cannot be partitioned by GSPMD - XLA refuses them
-            at lowering time on any >1-device mesh ("wrap the call in
-            a shard_map") - so with a multi-device hint the ``"auto"``
-            policies resolve to the jnp pair path, which GSPMD
-            partitions correctly (parity asserted by the driver's
-            ``dryrun_multichip``).  Explicit ``use_pallas=True`` /
-            ``spill=True`` combined with a multi-device hint raise
-            immediately: the Pallas champion on a mesh is the
-            explicitly-communicating decomposed path
-            (:func:`tpgsd.sph.make_distributed_step_fn` and the 2-D/
-            3-D variants), which runs the kernels inside shard_map
-            with ppermute halo exchange.  Single-device hints (or
-            ``None``, the default) leave the champion resolution
-            untouched.
+            NamedSharding, or the device count.  A ``pallas_call`` is a
+            custom call that GSPMD cannot partition, so with a
+            multi-device hint ``"auto"`` resolves to the jnp pair path,
+            which GSPMD partitions correctly, and an explicit
+            ``use_pallas=True`` raises.  The kernels on a mesh run
+            inside ``shard_map`` in the decomposed steps
+            (:func:`tpgsd.sph.make_distributed_step_fn` and the 2-D/3-D
+            variants).
 
     The returned function carries the post-resolution configuration in
-    its ``resolved`` attribute (``{"use_pallas", "spill",
-    "density_mode", "gspmd"}``) so callers and tests can pin what the
+    its ``resolved`` attribute (``{"use_pallas", "density_mode",
+    "gspmd"}``) so callers and tests can pin what the
     zero-knob defaults chose.
     """
     # trace-time constants stay on the host (numpy): eager jnp.asarray
     # here would trigger device transfers at build time; as embedded
     # constants they ship with the compiled executable instead
     import numpy as _np
-
-    from . import pallas_ops as _po
 
     continuity = density_mode == "continuity"
     if density_mode not in ("summation", "continuity"):
@@ -805,46 +843,10 @@ def make_step_fn(
             "delta_sph for its noise control instead"
         )
     gspmd = _spmd_device_count(sharding) > 1
-    if gspmd and (use_pallas is True or spill is True):
-        raise ValueError(
-            "use_pallas/spill=True cannot run under GSPMD-partitioned "
-            "inputs: XLA refuses to auto-partition Mosaic kernels on a "
-            "multi-device mesh.  Use make_distributed_step_fn (or the "
-            "2-D/3-D variants) - they run the Pallas kernels inside "
-            "shard_map with explicit halo exchange - or leave "
-            "use_pallas/spill='auto' to get the GSPMD-partitionable "
-            "jnp path."
-        )
-    if use_pallas == "auto":
-        # sharding-aware: GSPMD cannot partition Mosaic kernels (it is
-        # a lowering-time NotImplementedError on >1 device), so a
-        # multi-device hint pins the jnp path REGARDLESS of backend -
-        # the resolution on a real TPU pod is the same one the virtual
-        # CPU-mesh dryrun validates
-        use_pallas = (
-            not gspmd
-            and jax.default_backend() == "tpu"
-            and (
-                _po.accel_drho_supported(grid)
-                if continuity
-                else _po.supported(grid)
-            )
-        )
-    if spill == "auto":
-        # the measured champion wherever it applies: packed capacities
-        # on the Pallas path (docs/performance.md - 1.68x at 100k,
-        # 1.50x at 1M over single-tier), in BOTH density formulations
-        spill = (
-            not gspmd
-            and jax.default_backend() == "tpu"
-            and bool(use_pallas)
-            and _po.spill_supported(grid)
-        )
-    if pallas_block is None:
-        pallas_block = _po.default_block(grid)
+    use_pallas = resolve_use_pallas(use_pallas, gspmd=gspmd)
+    sweeps = pair_sweeps(use_pallas, block, interpret=pallas_interpret)
     resolved = {
-        "use_pallas": bool(use_pallas),
-        "spill": bool(spill),
+        "use_pallas": use_pallas,
         "density_mode": density_mode,
         "gspmd": gspmd,
     }
@@ -855,12 +857,6 @@ def make_step_fn(
     gravity = _np.asarray(params.gravity, _np.float32)
     wrap_axes = periodic & (_np.asarray(grid.dims) >= 3)
     mimage = _mimage_of(grid, periodic)
-    # periodic axes reach the Pallas kernels as a pre-shifted ghost-cell
-    # halo (see tpgsd.sph.pallas_ops) - same wrap rule as the jnp path
-    pallas_wrap = tuple(map(bool, wrap_axes)) if periodic else None
-
-    if use_pallas:
-        from . import pallas_ops
 
     def _finish(x, v, out, overflow, dt, rho_cur=None):
         """Shared integrate/boundary tail: ``out`` is the per-particle
@@ -933,219 +929,6 @@ def make_step_fn(
             return new_state, (rho, p, overflow), a2max
         return new_state, (rho, p, overflow)
 
-    if spill:
-        if not use_pallas:
-            raise ValueError(
-                "spill=True requires use_pallas - the two-tier layout "
-                "exists for the packed Pallas kernels"
-            )
-        if not _po.spill_supported(grid):
-            raise ValueError(
-                "spill needs a packed capacity (24 <= K <= 64, multiple "
-                "of 8); got %d" % grid.capacity
-            )
-        k = grid.capacity
-
-        if continuity:
-
-            def step_continuity_spill(state, dt=params.dt):
-                if state.rho is None:
-                    raise ValueError(
-                        "density_mode='continuity' needs state.rho - seed "
-                        "it with tpgsd.sph.init_density(state, grid, "
-                        "params)"
-                    )
-                x, v, rho = state.x, state.v, state.rho
-                cells, sp = build_cells_spill(x, grid, k)
-                # one fused 7-column layout scatter per tier (x|v|rho)
-                xvr = jnp.concatenate([x, v, rho[:, None]], axis=-1)
-                soa_a = scatter_to_cells_soa(xvr, cells, grid)
-                soa_b = scatter_to_cells_soa(
-                    xvr, cells, grid, slot_base=k, capacity=k
-                )
-
-                def tier_rho(plane, mask):
-                    # carried density is exact; dead slots hold rho0 so
-                    # p/rho^2 terms stay finite (masked from every sum)
-                    rho_t = jnp.where(
-                        mask[: grid.n_cells],
-                        jnp.maximum(plane, 0.1 * params.rho0),
-                        params.rho0,
-                    )
-                    p_t = jnp.where(
-                        mask[: grid.n_cells],
-                        tait_pressure(rho_t, params),
-                        0.0,
-                    )
-                    return rho_t, p_t
-
-                rho_a, p_a = tier_rho(soa_a[6], cells.mask)
-                rho_b, p_b = tier_rho(soa_b[6], sp.mask)
-                out_a, out_b = pallas_ops.accel_drho_spill(
-                    soa_a[:3], soa_a[3:6], rho_a, p_a, cells.mask,
-                    soa_b[:3], soa_b[3:6], rho_b, p_b, sp.mask,
-                    grid, params, kernel=kernel, delta_sph=delta_sph,
-                    block=pallas_block, interpret=pallas_interpret,
-                    wrap_axes=pallas_wrap, soa=True,
-                )
-                out4 = jnp.concatenate([out_a, out_b], axis=1)  # [C,2K,4]
-
-                extra = []
-                if xsph > 0 or surface_tension > 0:
-                    # concatenated-tier (jnp) pair passes, as in the
-                    # summation spill step
-                    mask2 = jnp.concatenate([cells.mask, sp.mask], axis=1)
-                    dense2 = jnp.concatenate(
-                        [
-                            jnp.concatenate(
-                                [
-                                    jnp.moveaxis(soa_a, 0, -1),
-                                    jnp.moveaxis(soa_b, 0, -1),
-                                ],
-                                axis=1,
-                            ),
-                            jnp.zeros((1, 2 * k, 7), soa_a.dtype),
-                        ]
-                    )
-                    dense_x2 = dense2[..., :3]
-                    dense_v2 = dense2[..., 3:6]
-                    rho2 = jnp.concatenate([rho_a, rho_b], axis=1)
-                    rho2_s = jnp.concatenate(
-                        [rho2, jnp.full((1, 2 * k), params.rho0, rho2.dtype)]
-                    )
-                    if surface_tension > 0:
-                        coh = _cohesion_blocks(
-                            dense_x2, rho2_s, mask2, nbr_static, params,
-                            kernel, block, surface_tension, mimage=mimage,
-                        )
-                        out4 = jnp.concatenate(
-                            [out4[..., :3] + coh, out4[..., 3:]], axis=-1
-                        )
-                    if xsph > 0:
-                        extra.append(
-                            _xsph_blocks(
-                                dense_x2, dense_v2, rho2_s, mask2,
-                                nbr_static, params, kernel, block,
-                                mimage=mimage,
-                            )
-                        )
-                bundle = (
-                    out4 if not extra
-                    else jnp.concatenate([out4] + extra, axis=-1)
-                )
-                ncol = bundle.shape[-1]
-                # sentinel: drho = 0 - dropped particles keep their
-                # carried density (single-tier continuity semantics)
-                sent = jnp.zeros((1, 2 * k, ncol), bundle.dtype)
-                out = gather_from_cells(
-                    jnp.concatenate([bundle, sent]), cells, grid,
-                    capacity=2 * k,
-                )
-                return _finish(x, v, out, cells.overflow, dt, rho_cur=rho)
-
-            step_continuity_spill.resolved = resolved
-            return step_continuity_spill
-
-        def step_spill(state, dt=params.dt):
-            x, v = state.x, state.v
-            cells, sp = build_cells_spill(x, grid, k)
-            xv = jnp.concatenate([x, v], axis=-1)
-            soa_a = scatter_to_cells_soa(xv, cells, grid)
-            soa_b = scatter_to_cells_soa(
-                xv, cells, grid, slot_base=k, capacity=k
-            )
-            rho_a, rho_b = pallas_ops.density_spill(
-                soa_a[:3], cells.mask, soa_b[:3], sp.mask, grid, params,
-                kernel=kernel, block=pallas_block,
-                interpret=pallas_interpret, wrap_axes=pallas_wrap, soa=True,
-            )
-
-            def finish_rho(rho, mask):
-                rho = jnp.where(
-                    mask[: grid.n_cells],
-                    jnp.maximum(rho, 0.1 * params.rho0),
-                    params.rho0,
-                )
-                if density_renorm:
-                    rho = _renormalize_density(rho, params)
-                p = jnp.where(
-                    mask[: grid.n_cells], tait_pressure(rho, params), 0.0
-                )
-                return rho, p
-
-            rho_a, p_a = finish_rho(rho_a, cells.mask)
-            rho_b, p_b = finish_rho(rho_b, sp.mask)
-            acc_a, acc_b = pallas_ops.accel_spill(
-                soa_a[:3], soa_a[3:], rho_a, p_a, cells.mask,
-                soa_b[:3], soa_b[3:], rho_b, p_b, sp.mask,
-                grid, params, kernel=kernel, block=pallas_block,
-                interpret=pallas_interpret, wrap_axes=pallas_wrap, soa=True,
-            )
-            acc2 = jnp.concatenate([acc_a, acc_b], axis=1)  # [C, 2K, 3]
-            rho2 = jnp.concatenate([rho_a, rho_b], axis=1)
-            p2 = jnp.concatenate([p_a, p_b], axis=1)
-
-            extra = []
-            if xsph > 0 or surface_tension > 0:
-                # the (jnp) XSPH/cohesion pair passes run over the two
-                # tiers CONCATENATED along the slot axis - the [C, 2K]
-                # layout is slot-identical to a single-tier layout of
-                # capacity 2K (tpgsd.sph.cells.build_cells_spill), so
-                # the capacity-agnostic pair blocks apply unchanged
-                # (sentinel row appended; SoA dead slots carry masked
-                # garbage, which every pair path masks).  These passes
-                # pay single-tier-2K pair cost; the density/accel bulk
-                # still rides the flag-skipped spill kernels.
-                mask2 = jnp.concatenate([cells.mask, sp.mask], axis=1)
-                dense_xv2 = jnp.concatenate(
-                    [
-                        jnp.concatenate(
-                            [
-                                jnp.moveaxis(soa_a, 0, -1),
-                                jnp.moveaxis(soa_b, 0, -1),
-                            ],
-                            axis=1,
-                        ),
-                        jnp.zeros((1, 2 * k, 6), soa_a.dtype),
-                    ]
-                )
-                dense_x2 = dense_xv2[..., :3]
-                dense_v2 = dense_xv2[..., 3:]
-                rho2_s = jnp.concatenate(
-                    [rho2, jnp.full((1, 2 * k), params.rho0, rho2.dtype)]
-                )
-                if surface_tension > 0:
-                    acc2 = acc2 + _cohesion_blocks(
-                        dense_x2, rho2_s, mask2, nbr_static, params,
-                        kernel, block, surface_tension, mimage=mimage,
-                    )
-                if xsph > 0:
-                    extra.append(
-                        _xsph_blocks(
-                            dense_x2, dense_v2, rho2_s, mask2, nbr_static,
-                            params, kernel, block, mimage=mimage,
-                        )
-                    )
-
-            bundle = jnp.concatenate(
-                [acc2, rho2[..., None], p2[..., None]] + extra, axis=-1
-            )  # [C, 2K, 5 (+3 xsph)]
-            ncol = bundle.shape[-1]
-            # sentinel row for dropped particles: rho0, zero p/acc
-            # (matches the single-tier path's sentinel semantics)
-            sent = (
-                jnp.zeros((1, 2 * k, ncol), bundle.dtype)
-                .at[..., 3]
-                .set(params.rho0)
-            )
-            out = gather_from_cells(
-                jnp.concatenate([bundle, sent]), cells, grid, capacity=2 * k
-            )
-            return _finish(x, v, out, cells.overflow, dt)
-
-        step_spill.resolved = resolved
-        return step_spill
-
     if continuity:
 
         def step_continuity(state, dt=params.dt):
@@ -1168,22 +951,12 @@ def make_step_fn(
             p_dense = jnp.where(
                 cells.mask, tait_pressure(rho_dense, params), 0.0
             )
-            if use_pallas:
-                # the fused momentum+continuity kernel: one MXU pair
-                # sweep produces acc AND drho (lane-native capacities;
-                # parity-tested against the jnp blocks below)
-                out4 = pallas_ops.accel_drho(
-                    dense_x, dense_v, rho_dense, p_dense, cells.mask,
-                    grid, params, kernel=kernel, delta_sph=delta_sph,
-                    block=pallas_block, interpret=pallas_interpret,
-                    wrap_axes=pallas_wrap,
-                )
-            else:
-                out4 = _accel_drho_blocks(
-                    dense_x, dense_v, rho_dense, p_dense, cells.mask,
-                    nbr_static, params, kernel, block, delta_sph,
-                    mimage=mimage,
-                )
+            # the fused momentum+continuity sweep: ONE pair pass for acc
+            # AND drho
+            out4 = sweeps.accel_drho(
+                dense_x, dense_v, rho_dense, p_dense, cells.mask,
+                nbr_static, params, kernel, delta_sph, mimage=mimage,
+            )
             if surface_tension > 0:
                 coh = _cohesion_blocks(
                     dense_x, rho_dense, cells.mask, nbr_static, params,
@@ -1220,40 +993,14 @@ def make_step_fn(
     def step(state, dt=params.dt):
         x, v = state.x, state.v
         cells = build_cells(x, grid)
-        # one fused layout gather for x AND v (gathers are the layout
-        # cost on TPU; 6 columns in one pass instead of two passes).
-        # The Pallas branch uses the octet-row SoA layout (8x fewer
-        # gather rows AND no AoS->SoA transpose in the kernel prep);
-        # the jnp pair blocks keep the AoS layout they index by slot.
-        if use_pallas:
-            xv_soa = scatter_to_cells_soa(
-                jnp.concatenate([x, v], axis=-1), cells, grid
-            )
-            dense_x_soa, dense_v_soa = xv_soa[:3], xv_soa[3:]
-            if xsph > 0 or surface_tension > 0:
-                # the (jnp) XSPH/cohesion pair passes index AoS + sentinel
-                xv = jnp.concatenate(
-                    [
-                        jnp.moveaxis(xv_soa, 0, -1),
-                        jnp.zeros((1, grid.capacity, 6), xv_soa.dtype),
-                    ]
-                )
-                dense_x, dense_v = xv[..., :3], xv[..., 3:]
-        else:
-            xv = scatter_to_cells(jnp.concatenate([x, v], axis=-1), cells, grid)
-            dense_x, dense_v = xv[..., :3], xv[..., 3:]
+        # one fused layout gather for x AND v (6 columns in one pass
+        # instead of two)
+        xv = scatter_to_cells(jnp.concatenate([x, v], axis=-1), cells, grid)
+        dense_x, dense_v = xv[..., :3], xv[..., 3:]
 
-        if use_pallas:
-            rho_dense = pallas_ops.density(
-                dense_x_soa, cells.mask, grid, params, kernel=kernel,
-                block=pallas_block, interpret=pallas_interpret,
-                wrap_axes=pallas_wrap, soa=True,
-            )
-        else:
-            rho_dense = _density_blocks(
-                dense_x, cells.mask, nbr_static, params, kernel, block,
-                mimage=mimage,
-            )
+        rho_dense = sweeps.density(
+            dense_x, cells.mask, nbr_static, params, kernel, mimage=mimage
+        )
         # sentinel row: rest density (never 0 - avoids NaN in p/rho^2)
         rho_dense = jnp.concatenate(
             [rho_dense, jnp.full((1, grid.capacity), params.rho0, rho_dense.dtype)]
@@ -1266,17 +1013,10 @@ def make_step_fn(
         p_dense = tait_pressure(rho_dense, params)
         p_dense = jnp.where(cells.mask, p_dense, 0.0)
 
-        if use_pallas:
-            acc_dense = pallas_ops.accel(
-                dense_x_soa, dense_v_soa, rho_dense, p_dense, cells.mask,
-                grid, params, kernel=kernel, block=pallas_block,
-                interpret=pallas_interpret, wrap_axes=pallas_wrap, soa=True,
-            )
-        else:
-            acc_dense = _accel_blocks(
-                dense_x, dense_v, rho_dense, p_dense, cells.mask,
-                nbr_static, params, kernel, block, mimage=mimage,
-            )
+        acc_dense = sweeps.accel(
+            dense_x, dense_v, rho_dense, p_dense, cells.mask, nbr_static,
+            params, kernel, mimage=mimage,
+        )
         if surface_tension > 0:
             acc_dense = acc_dense + _cohesion_blocks(
                 dense_x, rho_dense, cells.mask, nbr_static, params, kernel,
@@ -1284,7 +1024,7 @@ def make_step_fn(
             )
         # one fused particle-order gather for acc, rho, p (and the XSPH
         # correction): stack the per-slot outputs as columns, gather
-        # once, split (separate gathers measure ~3x this)
+        # once, split
         cols = [
             jnp.concatenate(
                 [acc_dense, jnp.zeros((1, grid.capacity, 3), acc_dense.dtype)]
@@ -1333,14 +1073,14 @@ def make_adaptive_step_fn(
 
     The step is built once and jitted once; ``dt`` flows through the
     trace as a scalar operand, so adapting it never recompiles (this is
-    the TPU-native shape of "variable dt": data-dependent VALUES are
+    the jit-friendly shape of "variable dt": data-dependent VALUES are
     free under jit, data-dependent SHAPES are not).  The returned
     ``dt_next`` is computed from the post-step state, giving the usual
     one-step lag - cover it with the safety factor ``cfl``.
 
     The reference has no stepper (its frames come from an external host
     simulation, pgsd/scripts/benchmark-write.cc:86-130); this belongs
-    to the SPH producer that the TPU build adds on top.
+    to the SPH producer that this package adds on top.
 
     Args:
         grid / params: as :func:`make_step_fn`.  ``params.dt`` seeds
